@@ -22,14 +22,16 @@ runs K9-K11. Phases, each fatal on failure:
 1. device: exactly one CUDA device must be visible; print its name and
    power limit;
 2. build: compile the kernel library from ``ringzk_tpu_torch/csrc`` (one
-   nvcc per source, all at once); K11's SASS must hold its 2 * 64 IMADs;
+   nvcc per source, all at once) and print ptxas's registers, shared
+   memory and spills per kernel; K11's SASS must hold its 2 * 64 IMADs;
 3. kernels: K1-K8 at the paths' shapes (K7 also at the int64 extremes;
    K6 at the full batch of each larger-ring path, compared on 8192 of its
    rows), K1 at all three primes and K2 on its images over the
    calibration's 393,216 rows, K9 forward and inverse at each prime (8192
    rows, and 393,216 at prime 0), K10 at each prime at N=512 and at prime
    0 at N=1024 (8192 rows), K11 at [24576, 512], each equal to its plain
-   PyTorch version
+   PyTorch version (the digit operators of K3, K6 and K10 are packed
+   first, as set-up, and the packing time is printed)
    (integers: the tolerance is zero); K9's images of residues equal plane
    i of K1's, and K10's forward and inverse equal K9's;
 4. known answers: the port with the draws of
@@ -57,10 +59,11 @@ runs K9-K11. Phases, each fatal on failure:
    K1-K4 and K6-K11 against their plain versions, each beside its bound
    and its calibrated bound (K10 forward and inverse at the calibration's
    393,216 rows also equal to their plain versions); K6 also beside K3 on
-   the side-by-side layout of the same operator and beside
-   ``torch._int_mm`` of its digit planes, K10 beside ``torch._int_mm`` of
-   its digit planes; a kernel that runs faster than either bound fails
-   the run (the bound would be wrong);
+   the side-by-side layout of the same operator; K3, K6 and K10 beside
+   ``torch._int_mm`` of their digit planes with the operator row-major and
+   column-major (the faster is the yardstick), and with their share of the
+   int8 peak; a kernel that runs faster than either bound fails the run
+   (the bound would be wrong);
 8. calibration: ``calibrate.main()`` from launch counts set to 0 (probes
    A-D, the roofline row of K1, K9 and K10, each transform checked on its
    inverse). K11 is timed again here as the best of 5 windows of 200
@@ -463,7 +466,7 @@ def main() -> int:
     _lib.lib()
     print(f"[2] build: {path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
     for line in path.with_suffix(".log").read_text().splitlines():
-        if "Compiling entry function" in line or "Used" in line:
+        if "Compiling entry function" in line or "Used" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
     imads, other = sass_imads(path, _lib._nvcc(), "mac_chain_kernel")
     if imads < 2 * k_mac.CHAIN:
@@ -519,6 +522,19 @@ def main() -> int:
     del h3
     ck = commit_mod.keygen(gen, params, N_DEG)   # device=None: the card
     kn = params.k * N_DEG
+    pack_ms = {}
+
+    def pack(label, w, planes):
+        """Build operator w's packed twin from its planes (the kernels'
+        set-up, never inside a timed window) and record its time."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k_mv.packed_operator(w, planes)
+        torch.cuda.synchronize()
+        pack_ms[label] = (time.perf_counter() - t0) * 1e3
+
+    pack("K3 N=512 a1", ck.a1_dig, k_mv.key_planes(ck.a1_dig, N_DEG))
+    pack("K3 N=512 a2", ck.a2_dig, k_mv.key_planes(ck.a2_dig, N_DEG))
     vs = {}
     for bnd in (params.b, open_mod.gaussian_bound(params, N_DEG),
                 params.verify_bound(N_DEG)):
@@ -589,6 +605,9 @@ def main() -> int:
     # plain version (tens of GB at the full batch) checks its first and
     # last K6_CHECK_ROWS / 2 rows
     large_ck = {n: commit_mod.keygen(gen, params, n) for n in B_OPEN_LARGE}
+    for n, lck in large_ck.items():
+        pack(f"K6 N={n} a1", lck.a1_dig, lck.a1_dig)
+        pack(f"K6 N={n} a2", lck.a2_dig, lck.a2_dig)
     k6_batches = {1024: (B_OPEN, B_LINEAR, (VL + 1) * B_SUM), 2048: (B_OPEN_LARGE[2048],),
                   4096: (B_OPEN_LARGE[4096],)}
     k6_v = {}
@@ -649,6 +668,9 @@ def main() -> int:
         xc = centered((CHECK_ROWS, n))
         xc[0, :2] = torch.tensor([conv_mxu.digit_capacity(4), -conv_mxu.digit_capacity(4)])
         for i in primes:
+            for which in ("mf", "mi"):
+                m = ntt_dense.operator(dring, i, which, dev)
+                pack(f"K10 N={n} prime {i} {which}", m, k_dense.dense_planes(m, n))
             h = ntt_dense.fwd_one_dense(dring, i, xc)
             back = ntt_dense.inv_one_dense(dring, i, h)
             errs["K10"] = max(errs["K10"], compare(
@@ -664,6 +686,8 @@ def main() -> int:
                 fail(f"K10 inv N={n} prime {i} differs from K9 inv")
     print("  K10 forward of centered x equals K9 forward of x mod p; K10 inverse equals K9 "
           "inverse and gives x mod p back", flush=True)
+    print("[3] set-up, operator packing (pack_planes, once per operator): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in pack_ms.items()), flush=True)
     x11 = uint32s(K11_SHAPE[0], 2**32, K11_SHAPE[1])
     errs["K11"] = compare(f"K11 mac_chain chain={k_mac.CHAIN}", k_mac.mac_chain(x11),
                           k_mac.mac_chain_plain(x11))
@@ -1059,12 +1083,27 @@ def main() -> int:
     planes = torch.randint(-128, 128, (3 * B_OPEN, kn), generator=gen, device=dev,
                            dtype=torch.int32).to(torch.int8)
     int_mm = {}
-    try:
-        int_mm["K3"] = cuda_ms(lambda: torch._int_mm(planes, ck.a1_dig), reps=10)
-        print(f"  K3 context: torch._int_mm of the digit-plane GEMM alone [{3 * B_OPEN}, {kn}] "
-              f"x [{kn}, {ck.a1_dig.shape[1]}] int8: {int_mm['K3']:.3f} ms on {smi}", flush=True)
-    except RuntimeError as err:
-        print(f"  K3 context: torch._int_mm not measured ({err})", flush=True)
+
+    def int_mm_ms(label, a, w, reps):
+        """torch._int_mm(a, w) with w row-major and with w column-major (the
+        K-major "TN" form cuBLASLt's int8 kernels take); prints both and
+        returns the faster."""
+        w_cm = w.t().contiguous().t()
+        times = {}
+        for form, ww in (("row-major", w), ("column-major", w_cm)):
+            try:
+                times[form] = cuda_ms(lambda ww=ww: torch._int_mm(a, ww), reps=reps)
+            except RuntimeError as err:
+                print(f"  {label}: torch._int_mm with the operator {form} not measured ({err})",
+                      flush=True)
+        del w_cm
+        print(f"  {label}: torch._int_mm of the digit-plane GEMM alone (no digit split, no "
+              f"fold) {list(a.shape)} x {list(w.shape)} int8: "
+              + ", ".join(f"operator {f} {t:.3f} ms" for f, t in times.items()) + f" on {smi}",
+              flush=True)
+        return min(times.values()) if times else None
+
+    int_mm["K3"] = int_mm_ms("K3 context", planes, ck.a1_dig, 10)
     del planes
     # K6's yardsticks at open N=1024's shape: K3 on the side-by-side layout
     # of the same operator (what the layout rule chose against), and the
@@ -1078,23 +1117,24 @@ def main() -> int:
           f"B={B_OPEN}: {k3_on_2d:.3f} ms (K6 {results['K6'][0]:.3f} ms) on {smi}", flush=True)
     planes = torch.randint(-128, 128, (3 * B_OPEN, 3 * 1024), generator=gen, device=dev,
                            dtype=torch.int32).to(torch.int8)
-    try:
-        int_mm["K6"] = cuda_ms(lambda: torch._int_mm(planes, w1024_2d), reps=5)
-        print(f"  K6 context: torch._int_mm of the digit-plane GEMM alone [{3 * B_OPEN}, "
-              f"{3 * 1024}] x [{3 * 1024}, {w1024_2d.shape[1]}] int8: {int_mm['K6']:.3f} ms on "
-              f"{smi}", flush=True)
-    except RuntimeError as err:
-        print(f"  K6 context: torch._int_mm not measured ({err})", flush=True)
+    int_mm["K6"] = int_mm_ms("K6 context", planes, w1024_2d, 5)
     del planes, w1024_2d
     # K10's library yardstick: torch._int_mm of its digit planes against the
     # operator (the GEMM alone: no digit split, no fold)
     planes = torch.randint(-128, 128, (K9_ROWS, 4 * N_DEG), generator=gen, device=dev,
                            dtype=torch.int32).to(torch.int8)
-    int_mm["K10"] = cuda_ms(lambda: torch._int_mm(planes, mf512), reps=10)
-    print(f"  K10 library: torch._int_mm of its digit planes [{K9_ROWS}, {4 * N_DEG}] x "
-          f"[{4 * N_DEG}, {4 * N_DEG}] int8: {int_mm['K10']:.3f} ms (K10 {results['K10'][0]:.3f} "
-          f"ms) on {smi}", flush=True)
+    int_mm["K10"] = int_mm_ms("K10 library", planes, mf512, 10)
+    lib_k10 = "not measured" if int_mm["K10"] is None else f"{int_mm['K10']:.3f} ms"
+    print(f"  K10 {results['K10'][0]:.3f} ms forward, {results['K10 (inv)'][0]:.3f} ms inverse "
+          f"against torch._int_mm's faster form {lib_k10} on {smi}", flush=True)
     del planes
+    # the int8 kernels' share of the dense int8 peak (their bounds are
+    # operations at INT8_OPS)
+    shares = {name: r[2] / r[0] for name, r in results.items()
+              if name.startswith(("K3", "K6", "K10")) and r[3] == "operations"}
+    print("  int8 share of the dense int8 peak (1,979 T/s): "
+          + ", ".join(f"{name} {share:.1%}" for name, share in shares.items()) + f" on {smi}",
+          flush=True)
 
     # the kernels line: launches summed over the runs
     r5 = k5_rows[0]
@@ -1145,6 +1185,9 @@ def main() -> int:
          "calibrated_bound_ms": results[k][5], "calibrated_bound_by": results[k][6],
          "library_ms": int_mm["K10"] if k == "K10" else None,
          "shape": results[k][4],
+         **({"int8_peak_share": shares.get(k),
+             "setup_pack_ms": {lb: t for lb, t in pack_ms.items() if lb.startswith(k + " ")}}
+            if k in ("K3", "K6", "K10") else {}),
          **({"int_mm_ms": int_mm.get(k)} if k in ("K3", "K6") else {}),
          **({"k3_on_2d_ms": k3_on_2d} if k == "K6" else {}),
          **({"inv_ms": results[f"{k} (inv)"][0], "inv_plain_ms": results[f"{k} (inv)"][1]}

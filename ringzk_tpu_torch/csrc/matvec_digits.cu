@@ -1,50 +1,41 @@
-// K3: the int8 digit matvec with its single-REDC mod-q fold, against the
-// operator with its planes side by side.
+// K3: the int8 digit matvec with its single-REDC mod-q fold, for keys that
+// store the operator with its planes side by side.
 //
 // Replaces ringzk_tpu/ops/pallas/matvec_kernel.py matvec_digits_pallas
 // (_matvec_kernel / _digits_matmul_fold), the algebra of
 // ringzk_tpu/ops/conv_mxu.py matvec_digits.
 //
-// v int32 [B, kN], operator int8 [kN, 4 * rowsN] (four key digit planes
-// side by side: plane dw of row k starts at k * 4 * rowsN + dw * rowsN), out
-// centered int32 [B, rowsN]. The tile, its digit packing and its fold are
-// matvec_tiles.cuh's, shared with K6.
+// v int32 [B, kN], the packed operator (ops/kernels/matvec.py pack_planes of
+// the key's [kN, 4 * rowsN] planes), out centered int32 [B, rowsN]. The
+// GEMM, its pipeline and its fold are matvec_tiles.cuh's; K6 runs the same
+// body on the same packed tensor and differs only in its name, so that a
+// profile tells the two layouts' paths apart.
 //
-// What bounds it on this card: operand loads and synchronisation, not the
-// tensor cores. At the main path's shapes (B = 131072, kN = 1536,
-// rowsN = 512, v_digits = 3) one call is 1.2e12 int8 multiply-adds against
-// 0.8 GB of input read once and 0.27 GB written; the operator (3 MB) stays
-// in L2. Measured on an H100 80GB HBM3 at 700 W, it reaches about 13% of
-// the int8 dense peak, and the v_digits = 1 launch (a third of the
-// multiply-adds) is only about 13% faster than v_digits = 3: each k step
-// loads its A and B tiles through registers into shared memory and waits on
-// __syncthreads() before the mma.sync, with no cp.async pipelining to hide
-// the loads.
+// What bounds it on this card: the int8 tensor cores at v_digits = 3 (at
+// B = 131072, kN = 1536, rowsN = 512 one call is 1.2e12 multiply-adds,
+// 1.25 ms at the dense int8 peak, against 0.8 GB of v read once and
+// 0.27 GB written), and the bytes from L2 into the SMs: each CTA reads its
+// 128 rows of v as int32 (4 bytes per k per row, for v_digits one-byte
+// digits) and its 64 operator columns, 24 KB a k step, about 9.6 GB from L2
+// a call. The design (matvec_tiles.cuh): a four-stage ring filled by one
+// producer thread (a TMA box of v and a cp.async.bulk of the packed
+// operator per stage) with mbarriers, the digit split in the consumers'
+// registers, wgmma with A from registers and the pre-packed K-major operator
+// from shared memory, and column tiles of one batch slab adjacent in the
+// launch order so that v comes from device memory about once. Measured by
+// chip_smoke.py on an H100 80GB HBM3 at 700 W: 2.36 ms at v_digits = 3,
+// 53% of the int8 peak; 1.48 ms at v_digits = 1 (28%), where the 9.6 GB
+// from L2 (about 6.5 TB/s) set the time rather than the multiply-adds.
 
 #include "matvec_tiles.cuh"
 
 namespace {
 
-using rz::mv::kBM;
-using rz::mv::kBN;
-using rz::mv::kKeyDigits;
-using rz::mv::kThreads;
-
-// Row k of plane dw in the [kN, 4 * rowsN] operator.
-struct SideBySide {
-  const int8_t* w;
-  int rows_n;
-  __device__ __forceinline__ const int8_t* operator()(int dw, int k) const {
-    return w + (static_cast<size_t>(k) * kKeyDigits + dw) * rows_n;
-  }
-};
-
 template <int VD>
-__global__ void __launch_bounds__(kThreads)
-    matvec_digits_kernel(const int32_t* __restrict__ v, const int8_t* __restrict__ w,
-                         int32_t* __restrict__ out, const uint32_t* __restrict__ c, int B,
-                         int kn, int rows_n) {
-  rz::mv::digits_matmul_fold<VD>(v, SideBySide{w, rows_n}, out, c, B, kn, rows_n);
+__global__ void __launch_bounds__(rz::mv::kThreads, 1)
+    matvec_digits_kernel(const __grid_constant__ rz::mv::Args a) {
+  rz::mv::digit_gemm<VD, false>(
+      a, rz::mv::FoldCentered{static_cast<int32_t*>(a.out), a.c});
 }
 
 }  // namespace
@@ -52,15 +43,7 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int rz_matvec_digits(const int32_t* v, const int8_t* w, int32_t* out,
                                 const uint32_t* c, int B, int kn, int rows_n, int v_digits,
                                 void* stream) {
-  if (B == 0) return 0;
-  const dim3 grid((B + kBM - 1) / kBM, (rows_n + kBN - 1) / kBN);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (v_digits) {
-    case 1: matvec_digits_kernel<1><<<grid, kThreads, 0, s>>>(v, w, out, c, B, kn, rows_n); break;
-    case 2: matvec_digits_kernel<2><<<grid, kThreads, 0, s>>>(v, w, out, c, B, kn, rows_n); break;
-    case 3: matvec_digits_kernel<3><<<grid, kThreads, 0, s>>>(v, w, out, c, B, kn, rows_n); break;
-    case 4: matvec_digits_kernel<4><<<grid, kThreads, 0, s>>>(v, w, out, c, B, kn, rows_n); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return rz::mv::launch_matvec<matvec_digits_kernel<1>, matvec_digits_kernel<2>,
+                               matvec_digits_kernel<3>, matvec_digits_kernel<4>>(
+      v, w, out, c, B, kn, rows_n, v_digits, stream);
 }

@@ -13,18 +13,24 @@
 // int8 operations against 8N bytes of traffic (the operator, 4 MB at N=512
 // and 16 MB at N=1024, stays in L2): 4N = 2,048 operations per byte at N=512.
 //
-// Design: K3's tile (matvec_tiles.cuh digits_matmul), with the operator as
-// K3's side-by-side planes: plane w of row k = u*N + j is M[k, w*N : (w+1)*N],
-// rows_n = N, contraction 4N. Digit u of the A operand is taken on the fly:
-// a k step of 32 lies in one digit plane u (N >= 32), and the loader hands
-// the tile's one-digit packing ((x + 0x80808080) >> 8u) - 0x80, whose low
-// byte after the tile's +0x80 bias is byte u of the biased value, so the
-// [rows, 4N] digit matrix never reaches device memory. Each 64 x 64 output
-// tile holds all four planes of its columns in registers, so the per-plane
-// fold (ntt_mxu._fold_planes: a reduction of each plane's int32 bits, a
+// Design: K3's GEMM (matvec_tiles.cuh digit_gemm, kDense) with the
+// contraction taken over j in 32-deep slices: the producer stages
+// x[b, j0 .. j0 + 32] once as int32, and the consumers split it into its
+// four digits u in registers (byte u of x + 0x80808080, ^ 0x80) and
+// multiply digit u with the sixteen N x N blocks (u, w) of the operator,
+// M[u*N + j, w*N + c] (ops/kernels/ntt_dense.py dense_planes, packed once
+// by the wrapper into the K-major tiles wgmma reads), accumulating output
+// plane w: 16 wgmma a stage into 4 accumulators. The [rows, 4N] digit matrix
+// never reaches device memory, and x is read once per 64-column tile (not
+// once per digit). Each warpgroup's 64 x 64 output tile holds all four
+// planes of its columns in registers, so the per-plane fold
+// (ntt_mxu._fold_planes: a reduction of each plane's int32 bits, a
 // Montgomery product by 256^w * R mod p, a strict add) stays in registers
 // too. A contraction sum is at most 4N * 128^2 = 2^26 at N=1024: int32 is
-// exact.
+// exact. Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W: 3.37 ms
+// forward or inverse at 393,216 rows, N=512 (49% of the int8 peak), where
+// torch._int_mm of the digit planes alone takes 4.64 ms with the operator
+// column-major and 25.0 ms row-major.
 //
 // Constant block `c` (uint32): p, -p^-1 mod 2^32, floor(2^32 / p),
 // (-2^32) mod p, 256^w * R mod p for w < 4.
@@ -33,80 +39,42 @@
 
 namespace {
 
-using rz::mv::kBM;
-using rz::mv::kBN;
 using rz::mv::kKeyDigits;
-using rz::mv::kThreads;
 
-// Row k of plane w in the [4N, 4N] operator.
-struct OperatorPlanes {
-  const int8_t* m;
-  int n;
-  __device__ __forceinline__ const int8_t* operator()(int w, int k) const {
-    return m + (static_cast<size_t>(k) * kKeyDigits + w) * n;
+struct FoldPlanes {
+  uint32_t* out;
+  const uint32_t* c;
+
+  __device__ __forceinline__ uint32_t fold(const int32_t (&h)[kKeyDigits]) const {
+    const uint32_t p = __ldg(c), pinv = __ldg(c + 1), one_sh = __ldg(c + 2),
+                   neg_corr = __ldg(c + 3);
+    uint32_t r = rz::reduce_i32(h[0], p, one_sh, neg_corr);
+#pragma unroll
+    for (int w = 1; w < kKeyDigits; ++w) {
+      const uint32_t hw = rz::reduce_i32(h[w], p, one_sh, neg_corr);
+      r = rz::add_mod31(r, rz::mont_mul(hw, __ldg(c + 4 + w), p, pinv), p);
+    }
+    return r;
+  }
+
+  __device__ __forceinline__ void operator()(size_t idx, const int32_t (&h0)[kKeyDigits],
+                                             const int32_t (&h1)[kKeyDigits]) const {
+    *reinterpret_cast<uint2*>(out + idx) = make_uint2(fold(h0), fold(h1));
   }
 };
 
-// Row b's A operand at k..k+3: digit u = k / N of x[b, k % N .. +3], handed
-// to the one-digit tile pre-shifted.
-struct DigitPlaneLoad {
-  const int32_t* x;
-  int n, logn;
-  bool vec;  // 16-byte loads: x aligned (N % 4 == 0 always)
-  __device__ __forceinline__ void operator()(int b, int k, int32_t (&v)[4]) const {
-    const int u = k >> logn, j = k & (n - 1);
-    const int32_t* src = x + static_cast<size_t>(b) * n + j;
-    int32_t r[4];
-    if (vec) {
-      const int4 q4 = *reinterpret_cast<const int4*>(src);
-      r[0] = q4.x; r[1] = q4.y; r[2] = q4.z; r[3] = q4.w;
-    } else {
-      for (int i = 0; i < 4; ++i) r[i] = src[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      v[i] = static_cast<int32_t>(((static_cast<uint32_t>(r[i]) + 0x80808080u) >> (8 * u)) -
-                                  0x80u);
-  }
-};
-
-__global__ void __launch_bounds__(kThreads)
-    ntt_dense_kernel(const int32_t* __restrict__ x, const int8_t* __restrict__ m,
-                     uint32_t* __restrict__ out, const uint32_t* __restrict__ c, int rows,
-                     int n, int logn) {
-  int32_t acc[4][kKeyDigits][4];
-  const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  rz::mv::digits_matmul<1>(acc, DigitPlaneLoad{x, n, logn, vec}, OperatorPlanes{m, n}, rows,
-                           4 * n, n);
-  const uint32_t p = c[0], pinv = c[1], one_sh = c[2], neg_corr = c[3];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = rz::mv::tile_row(e), col = rz::mv::tile_col(nt, e);
-      if (row < rows && col < n) {
-        uint32_t r = rz::reduce_i32(acc[nt][0][e], p, one_sh, neg_corr);
-#pragma unroll
-        for (int w = 1; w < kKeyDigits; ++w) {
-          const uint32_t hw = rz::reduce_i32(acc[nt][w][e], p, one_sh, neg_corr);
-          r = rz::add_mod31(r, rz::mont_mul(hw, c[4 + w], p, pinv), p);
-        }
-        out[static_cast<size_t>(row) * n + col] = r;
-      }
-    }
-  }
+__global__ void __launch_bounds__(rz::mv::kThreads, 1)
+    ntt_dense_kernel(const __grid_constant__ rz::mv::Args a) {
+  rz::mv::digit_gemm<kKeyDigits, true>(a, FoldPlanes{static_cast<uint32_t*>(a.out), a.c});
 }
 
 }  // namespace
 
 extern "C" int rz_ntt_dense(const int32_t* x, const int8_t* m, uint32_t* out, const uint32_t* c,
                             int rows, int n, void* stream) {
-  if (rows == 0) return 0;
-  if (n < 32 || (n & (n - 1))) return static_cast<int>(cudaErrorInvalidValue);
-  int logn = 0;
-  while ((1 << logn) < n) ++logn;
-  const dim3 grid((rows + kBM - 1) / kBM, (n + kBN - 1) / kBN);
-  ntt_dense_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, m, out, c, rows, n, logn);
-  return static_cast<int>(cudaGetLastError());
+  if (n < 32 || n % rz::mv::kBK) return static_cast<int>(cudaErrorInvalidValue);
+  const rz::mv::Args a{{}, m, out, c, rows, n, n,
+                       (n + rz::mv::kBN - 1) / rz::mv::kBN, n / rz::mv::kBK};
+  return rz::mv::launch<kKeyDigits, true>(ntt_dense_kernel, x, a,
+                                          static_cast<cudaStream_t>(stream));
 }

@@ -9,6 +9,14 @@ K6 (``csrc/matvec_colblock.cu``), counterpart of
 int8 [KEY_DIGITS, kN, rowsN], the layout keys past the resident gate store
 (``conv_mxu.maybe_blocked_layout``).
 
+Both kernels read the operator packed: ``pack_planes`` turns a key's
+digit planes [KEY_DIGITS, kN, rowsN] into one block per 64-column tile and
+32-deep k step, in the K-major core-matrix layout the kernels' wgmma
+descriptors name (``csrc/matvec_tiles.cuh``). Both stored layouts of one
+key pack to the same tensor, which the wrapper builds on a key's first
+launch and keeps on the operator tensor (``packed_operator``); the stored
+layouts themselves do not change. K10 packs its operator the same way.
+
 Torch has no integer matmul on CUDA, so the plain versions multiply the
 digit planes in float64. That is exact: every plane sum is at most
 kN * 128^2 < 2^53.
@@ -22,6 +30,47 @@ import torch
 from . import check, device_cache, launch, on_cuda
 
 MAX_V_DIGITS = 4  # the bias trick needs capacity(ndig) + bias < 2^32
+TILE_N, TILE_K = 64, 32  # the kernels' operator tile: columns, contraction
+
+
+def pack_planes(planes: torch.Tensor) -> torch.Tensor:
+    """Digit planes int8 [..., kN, rowsN] (D planes in all) -> the packed
+    operator int8 [ceil(rowsN/64), ceil(kN/32), D, 2, 64, 16]: for each
+    64-column tile and 32-deep k step, plane by plane, the two 16-byte k
+    halves of every column (k contiguous), zero past kN and rowsN."""
+    kn, rows_n = planes.shape[-2:]
+    planes = planes.reshape(-1, kn, rows_n)
+    d = planes.shape[0]
+    ks, nt = -(-kn // TILE_K), -(-rows_n // TILE_N)
+    padded = planes.new_zeros((d, ks * TILE_K, nt * TILE_N))
+    padded[:, :kn, :rows_n] = planes
+    return padded.reshape(d, ks, 2, 16, nt, TILE_N).permute(4, 1, 0, 2, 5, 3).contiguous()
+
+
+def unpack_planes(packed: torch.Tensor, kn: int, rows_n: int) -> torch.Tensor:
+    """Inverse of ``pack_planes``: the digit planes [D, kN, rowsN]."""
+    nt, ks, d = packed.shape[:3]
+    planes = packed.permute(2, 1, 3, 5, 0, 4).reshape(d, ks * TILE_K, nt * TILE_N)
+    return planes[:, :kn, :rows_n]
+
+
+def key_planes(w: torch.Tensor, rows_n: int) -> torch.Tensor:
+    """The digit planes [D, kN, rowsN] of a key's operator, blocked
+    [D, kN, rowsN] (itself) or side by side [kN, D*rowsN] (a view)."""
+    if w.dim() == 3:
+        return w
+    return w.reshape(w.shape[0], w.shape[1] // rows_n, rows_n).permute(1, 0, 2)
+
+
+def packed_operator(w: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """The packed twin of operator ``w``, ``pack_planes(planes)`` for a view
+    ``planes`` of ``w``: built on its first launch and kept on ``w`` until
+    ``w`` is written to."""
+    hit = getattr(w, "_rz_packed", None)
+    if hit is None or hit[0] != w._version:
+        hit = (w._version, pack_planes(planes))
+        w._rz_packed = hit
+    return hit[1]
 
 
 def fold_consts(ring, device) -> torch.Tensor:
@@ -87,7 +136,7 @@ def matvec_digits_colblock_plain(ring, w3, rows_n: int, v, v_digits: int):
 
 def _run(name: str, fn: str, plain, ring, w, w_shape: tuple, rows_n: int, v, v_digits: int):
     """K3's and K6's wrapper: check the arguments, then the plain version
-    for CPU tensors or the kernel for CUDA ones."""
+    for CPU tensors or the kernel, on the packed operator, for CUDA ones."""
     bflat, kn = v.shape
     check(name, v, torch.int32, (bflat, kn))
     check(name, w, torch.int8, w_shape)
@@ -95,11 +144,14 @@ def _run(name: str, fn: str, plain, ring, w, w_shape: tuple, rows_n: int, v, v_d
         raise ValueError(f"{name}: v_digits={v_digits} outside 1..{MAX_V_DIGITS}")
     if not on_cuda(name, v, w):
         return plain(ring, w, rows_n, v, v_digits)
-    if rows_n % 4 or w.data_ptr() % 4:
-        raise ValueError(f"{name}: rows_n must be a multiple of 4 and the operator "
-                         "aligned to 4 bytes")
+    if rows_n % 2 or kn % 4:
+        raise ValueError(f"{name}: rows_n must be even and kN a multiple of 4 "
+                         f"(rows_n={rows_n}, kN={kn})")
+    if v.data_ptr() % 16:  # the kernel copies 16-byte aligned rows of v
+        v = v.clone()
+    packed = packed_operator(w, key_planes(w, rows_n))
     out = torch.empty((bflat, rows_n), dtype=torch.int32, device=v.device)
-    launch(name, fn, v.device, v, w, out, fold_consts(ring, v.device), bflat, kn, rows_n,
+    launch(name, fn, v.device, v, packed, out, fold_consts(ring, v.device), bflat, kn, rows_n,
            v_digits)
     return out
 

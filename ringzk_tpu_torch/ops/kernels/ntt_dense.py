@@ -4,6 +4,10 @@
 [4N, 4N] (``ops/ntt_dense.py``) -> [0, p) int32 bits [rows, N]: four
 balanced digits of each x, one int8 product, the per-plane fold mod p
 (counterpart of ``dense_apply_pallas`` in ``archive/ntt_dense_kernel.py``).
+The kernel takes x once per 32-deep slice of j and multiplies its four
+digits u with the sixteen N x N blocks M[u*N + j, w*N + c] of the
+operator (``dense_planes``), packed once by ``matvec.pack_planes`` into
+the tiles K3 reads and kept on the operator tensor.
 
 Torch has no integer matmul on CUDA, so the plain version multiplies the
 digit planes in float64, as K3's does. That is exact: every sum is at most
@@ -16,6 +20,7 @@ import numpy as np
 import torch
 
 from . import check, device_cache, launch, on_cuda
+from .matvec import packed_operator
 from ..u64 import narrow
 
 DIGITS = 4  # input digits and operator planes (dout is 4 for every NTT prime)
@@ -39,6 +44,13 @@ def dense_consts(ring, i: int, device) -> torch.Tensor:
         return torch.from_numpy(c.astype(np.uint32).view(np.int32)).to(device)
 
     return device_cache(ring, ("dense_consts", i, str(device)), make)
+
+
+def dense_planes(m: torch.Tensor, n: int) -> torch.Tensor:
+    """The operator [4N, 4N] as its sixteen blocks [u, w, j, c] =
+    M[u*N + j, w*N + c] (a view): the planes K10 multiplies digit u of x
+    with, accumulating output plane w."""
+    return m.reshape(DIGITS, n, DIGITS, n).permute(0, 2, 1, 3)
 
 
 def dense_apply_plain(ring, i: int, m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -65,7 +77,10 @@ def dense_apply(ring, i: int, m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return dense_apply_plain(ring, i, m, x)
     if n < 32:
         raise ValueError(f"ntt_dense: the kernel takes N >= 32, got {n}")
+    if x.data_ptr() % 16:  # the kernel copies 16-byte aligned rows of x
+        x = x.clone()
+    packed = packed_operator(m, dense_planes(m, n))
     out = torch.empty_like(x)
-    launch("ntt_dense", "rz_ntt_dense", x.device, x, m, out, dense_consts(ring, i, x.device),
-           rows, n)
+    launch("ntt_dense", "rz_ntt_dense", x.device, x, packed, out,
+           dense_consts(ring, i, x.device), rows, n)
     return out

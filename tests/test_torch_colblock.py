@@ -137,3 +137,51 @@ def test_colblock_wrapper_checks_input():
     with pytest.raises(ValueError):
         k_mv.matvec_digits_colblock(ring, torch.zeros((4, 16, 48), dtype=torch.int8)
                                     .transpose(1, 2), 16, v, 1)
+
+
+@pytest.mark.parametrize("rows,n", [(1, 16), (1, 1024), (2, 128)])
+def test_both_layouts_pack_to_one_tensor(rows, n):
+    """The side-by-side [kN, 4*rowsN] and blocked [4, kN, rowsN] layouts of
+    one key pack to the same tensor (the one K3 and K6 read), and unpacking
+    gives the stored planes back."""
+    rng = np.random.default_rng(rows + n)
+    ring = tntt.get_ring(n, Q)
+    planes = tconv.operator_planes(torch.from_numpy(key(rng, rows, 3, n)), ring)
+    side = tconv._planes_side_by_side(planes)
+    blocked = tconv.to_blocked_layout(side)
+    packed = k_mv.pack_planes(blocked)
+    assert torch.equal(k_mv.pack_planes(k_mv.key_planes(side, rows * n)), packed)
+    kn, rows_n = 3 * n, rows * n
+    assert packed.shape == (-(-rows_n // 64), -(-kn // 32), 4, 2, 64, 16)
+    assert torch.equal(k_mv.unpack_planes(packed, kn, rows_n), blocked)
+    assert torch.equal(k_mv.unpack_planes(packed, kn, rows_n).permute(1, 0, 2)
+                       .reshape(kn, 4 * rows_n), side)
+
+
+@pytest.mark.parametrize("kn,rows_n", [(48, 16), (96, 200), (3072, 1024)])
+def test_packed_block_layout(kn, rows_n):
+    """Where the kernels read W_dw[k, c]: block (c // 64, k // 32), plane dw
+    at 2 KB, the k half at 1 KB (the descriptors' leading byte offset),
+    column c % 64 at 16 bytes (8 columns: the 128-byte stride offset), byte
+    k % 16; zero past kN and rowsN."""
+    rng = np.random.default_rng(kn + rows_n)
+    planes = torch.from_numpy(rng.integers(-128, 128, size=(4, kn, rows_n)).astype(np.int8))
+    flat = k_mv.pack_planes(planes).reshape(-1)
+    ks = -(-kn // 32)
+    dw, k, c = (rng.integers(0, m, size=4096) for m in (4, kn, rows_n))
+    off = (((c // 64) * ks + k // 32) * 8192 + dw * 2048 + (k % 32 // 16) * 1024
+           + (c % 64) * 16 + k % 16)
+    assert torch.equal(flat[torch.from_numpy(off)], planes[dw, k, c])
+    assert int(flat.abs().sum()) == int(planes.abs().sum())   # the padding is zero
+
+
+def test_packed_twin_follows_the_operator():
+    """The wrapper's packed twin is built once per operator tensor and
+    rebuilt after the operator is written to."""
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(rng.integers(-128, 128, size=(4, 96, 64)).astype(np.int8))
+    first = k_mv.packed_operator(w, w)
+    assert k_mv.packed_operator(w, w) is first
+    w[0, 0, 0] += 1
+    again = k_mv.packed_operator(w, w)
+    assert again is not first and torch.equal(again, k_mv.pack_planes(w))

@@ -100,7 +100,7 @@ def test_ntt_one_kernel_matches_plain(cuda, n):
                     assert torch.equal(h, k_ntt.fwd_all(ring, x, 3)[i])
 
 
-@pytest.mark.parametrize("n", [64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("n", [32, 64, 128, 256, 512, 1024])
 def test_dense_kernel_matches_plain(cuda, n):
     """K10 forward and inverse at every prime, ragged 77 rows, inputs up to
     the 4-digit capacity; both equal K9 on the same inputs."""
@@ -159,6 +159,77 @@ def test_colblock_kernel_matches_plain(cuda, n):
                 got = k_mv.matvec_digits_colblock(ring, w, rows_n, v, nd)
                 want = k_mv.matvec_digits_colblock_plain(ring, w, rows_n, v, nd)
                 assert torch.equal(got, want), (rows, rows_n, nd)
+
+
+def ends(batch: int) -> torch.Tensor:
+    """Row indices of a batch's first and last 128 rows (all rows of a
+    small batch): where a large batch's check against the plain version
+    looks."""
+    if batch <= 256:
+        return torch.arange(batch)
+    return torch.cat([torch.arange(128), torch.arange(batch - 128, batch)])
+
+
+@pytest.mark.parametrize("batch", [1, 63, 65, 131071])
+@pytest.mark.parametrize("layout", ["side by side", "blocked"])
+def test_matvec_ragged_batch(cuda, batch, layout):
+    """K3 (side-by-side operator) and K6 (blocked operator, the same planes)
+    at batches that are no multiple of the 128-row tile, every digit count,
+    at N=512 (rows_n 512, kN 1536)."""
+    rng = np.random.default_rng(batch)
+    ring = get_ring(512, Q)
+    planes = conv_mxu.operator_planes(centered(rng, (1, 3, 512)).to(cuda), ring)
+    for nd in (1, 2, 3, 4):
+        v = centered(rng, (batch, 3 * 512), conv_mxu.digit_capacity(nd)).to(cuda)
+        rows = ends(batch).to(cuda)
+        if layout == "blocked":
+            w = planes.contiguous()
+            got = k_mv.matvec_digits_colblock(ring, w, 512, v, nd)[rows]
+            want = k_mv.matvec_digits_colblock_plain(ring, w, 512, v[rows], nd)
+        else:
+            w = conv_mxu._planes_side_by_side(planes)
+            got = k_mv.matvec_digits(ring, w, 512, v, nd)[rows]
+            want = k_mv.matvec_digits_plain(ring, w, 512, v[rows], nd)
+        assert torch.equal(got, want), (batch, nd)
+
+
+def test_matvec_smallest_shapes(cuda):
+    """kN = 48 and rows_n = 16 (N=16): both under one tile, on both layouts."""
+    rng = np.random.default_rng(16)
+    ring = get_ring(16, Q)
+    planes = conv_mxu.operator_planes(centered(rng, (1, 3, 16)).to(cuda), ring)
+    for nd in (1, 2, 3, 4):
+        v = centered(rng, (65, 48), conv_mxu.digit_capacity(nd)).to(cuda)
+        w2 = conv_mxu._planes_side_by_side(planes)
+        want = k_mv.matvec_digits_plain(ring, w2, 16, v, nd)
+        assert torch.equal(k_mv.matvec_digits(ring, w2, 16, v, nd), want), nd
+        assert torch.equal(k_mv.matvec_digits_colblock(ring, planes.contiguous(), 16, v, nd),
+                           want), nd
+
+
+@pytest.mark.parametrize("n", [512, 4096])
+def test_matvec_extreme_group_sums(cuda, n):
+    """The largest shift-group sums: every key digit -128 or 127 and every
+    input at +-capacity (all digits +-127), for each digit count; K3 at
+    N=512, K6 at N=4096."""
+    ring = get_ring(n, Q)
+    kn = 3 * n
+    rows = torch.arange(64, device=cuda)
+    for fill in (-128, 127):
+        planes = torch.full((4, kn, n), fill, dtype=torch.int8, device=cuda)
+        for nd in (1, 2, 3, 4):
+            cap = conv_mxu.digit_capacity(nd)
+            v = torch.full((64, kn), cap, dtype=torch.int32, device=cuda)
+            v[1::2] = -cap
+            v[2, ::2] = -cap
+            if n == 512:
+                w = conv_mxu._planes_side_by_side(planes)
+                got = k_mv.matvec_digits(ring, w, n, v, nd)
+                want = k_mv.matvec_digits_plain(ring, w, n, v[rows], nd)
+            else:
+                got = k_mv.matvec_digits_colblock(ring, planes, n, v, nd)
+                want = k_mv.matvec_digits_colblock_plain(ring, planes, n, v[rows], nd)
+            assert torch.equal(got, want), (fill, nd)
 
 
 def test_n1024_open_roundtrip_runs_k6_not_k3(cuda):

@@ -119,3 +119,22 @@ def test_bal_digits_host_and_limits():
                             torch.zeros((1, 64), dtype=torch.int32))
     with pytest.raises(ValueError):
         k_dense.dense_apply(ring, 0, m, torch.zeros((1, 64), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("n", [32, 64, 512])
+def test_dense_operator_packs_and_unpacks(n):
+    """K10's operator [4N, 4N] as the sixteen planes (u, w) it multiplies
+    digit u of x with into output plane w: they pack into the K-major tiles
+    the kernel reads and unpack to the stored operator."""
+    from ringzk_tpu_torch.ops.kernels import matvec as k_mv
+
+    ring = tntt.get_ring(n, Q)
+    for which in ("mf", "mi"):
+        m = ntt_dense.operator(ring, 0, which, "cpu")
+        planes = k_dense.dense_planes(m, n)
+        assert all(torch.equal(planes[u, w], m[u * n:(u + 1) * n, w * n:(w + 1) * n])
+                   for u in range(4) for w in range(4))
+        packed = k_mv.pack_planes(planes)
+        assert packed.shape == (-(-n // 64), n // 32, 16, 2, 64, 16)
+        back = k_mv.unpack_planes(packed, n, n).reshape(4, 4, n, n)
+        assert torch.equal(back.permute(0, 2, 1, 3).reshape(4 * n, 4 * n), m)
