@@ -26,7 +26,8 @@ runs K9-K11. Phases, each fatal on failure:
    memory and spills per kernel; K11's SASS must hold its 2 * 64 IMADs;
 3. kernels: K1-K8 at the paths' shapes (K7 also at the int64 extremes;
    K6 at the full batch of each larger-ring path, compared on 8192 of its
-   rows), K1 at all three primes and K2 on its images over the
+   rows; K4 and K5 also at open N=1024 and N=4096's shapes, compared on
+   8192 rows or batch elements), K1 at all three primes and K2 on its images over the
    calibration's 393,216 rows, K9 forward and inverse at each prime (8192
    rows, and 393,216 at prime 0), K10 at each prime at N=512 and at prime
    0 at N=1024 (8192 rows), K11 at [24576, 512], each equal to its plain
@@ -54,9 +55,11 @@ runs K9-K11. Phases, each fatal on failure:
    (K1-K8, other device work) and the idle share, the latter only when
    the profiler recorded every launch the counters saw, and one round trip
    for the peak device memory;
-   then K5 at each of its shapes against its plain version and against the
-   composed route it replaced (K1, dot_hat, K2 and the centered add), and
-   K1-K4 and K6-K11 against their plain versions, each beside its bound
+   then K5 at each of its shapes (the five N=512 ones, and open's response
+   and verify at N=1024 and N=4096) against its plain version and against
+   the composed route it replaced (K1, dot_hat, K2 and the centered add),
+   and K1-K4 (K4 also at open N=1024 and N=4096) and K6-K11 against their
+   plain versions, each beside its bound
    and its calibrated bound (K10 forward and inverse at the calibration's
    393,216 rows also equal to their plain versions); K6 also beside K3 on
    the side-by-side layout of the same operator; K3, K6 and K10 beside
@@ -114,12 +117,19 @@ COUNTERS = {"K1": ("ntt_fwd",), "K2": ("ntt_inv",), "K3": ("matvec_digits",),
 K9_ROWS = 3 * B_OPEN      # bench.py's NTT roofline polynomials, 131072 * k
 CHECK_ROWS = 8192         # rows of the K9 (every prime) and K10 checks
 K11_SHAPE = (3 * 8192, 512)   # calibrate_vpu.py's probe
-# K5 at each shape the paths give it: (label, B, rows, num)
-K5_SHAPES = (("open response z = y + d.r", B_OPEN, 3, 1),
-             ("open verify t + c1.d", B_OPEN, 1, 2),
-             ("linear response z, zp", B_LINEAR, 3, 1),
-             ("sum response zs", B_SUM, VL * 3, 1),
-             ("sum verify t_i + c1_i.d", B_SUM, VL, 2))
+# K5 at each shape the paths give it: (label, B, rows, num, N); the larger
+# rings' open shapes are checked on K6_CHECK_ROWS of their batch elements
+K5_SHAPES = (("open response z = y + d.r", B_OPEN, 3, 1, N_DEG),
+             ("open verify t + c1.d", B_OPEN, 1, 2, N_DEG),
+             ("linear response z, zp", B_LINEAR, 3, 1, N_DEG),
+             ("sum response zs", B_SUM, VL * 3, 1, N_DEG),
+             ("sum verify t_i + c1_i.d", B_SUM, VL, 2, N_DEG),
+             ("open response z = y + d.r", B_OPEN_LARGE[1024], 3, 1, 1024),
+             ("open verify t + c1.d", B_OPEN_LARGE[1024], 1, 2, 1024),
+             ("open response z = y + d.r", B_OPEN_LARGE[4096], 3, 1, 4096),
+             ("open verify t + c1.d", B_OPEN_LARGE[4096], 1, 2, 4096))
+# K4 at the larger rings' open batches, beside N=512's (phase [3] and [7])
+K4_LARGE = (1024, 4096)
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense int8
 # tensor-core operations/s, and the 32-bit rate outside the tensor cores
 # (67 T/s, given for float32), which bounds the modular integer arithmetic.
@@ -310,6 +320,12 @@ def k5_bound(b: int, rows: int, num: int, n: int, cost: Cost = PEAK) -> tuple:
     per_b = (num * (2 * rows + 1) * ntt_ops(n, cost) + num * n * (rows + 2) * cost.mulmod
              + rows * n * (crt_ops(num, cost) + 2 * cost.addmod))
     return bound(nbytes, b * per_b, cost.rate)
+
+
+def k4_bound(b: int, n: int, cost: Cost = PEAK) -> tuple:
+    """keys and signs read once, the challenge written once; 32 bisection
+    steps of a compare and a count per lane."""
+    return bound(12 * b * n, 32 * cost.addmod * b * n, cost.rate)
 
 
 def k9_bound(rows: int, n: int, inverse: bool, cost: Cost = PEAK) -> tuple:
@@ -546,25 +562,42 @@ def main() -> int:
                 k_mv.matvec_digits_plain(ring, w, N_DEG, v, nd))
         for nd, v in vs.items() for which, w in (("a1", ck.a1_dig), ("a2", ck.a2_dig))
     )
-    signs, u = sampling.challenge_draws(gen, (B_OPEN,), N_DEG, dev)
+    def check_rows(b):
+        """The first and last K6_CHECK_ROWS / 2 of b rows (all when fewer),
+        where a larger-ring launch is held against its plain version."""
+        half = min(K6_CHECK_ROWS, b) // 2
+        return torch.cat([torch.arange(half, device=dev), torch.arange(b - half, b, device=dev)])
+
+    k4_in = {N_DEG: sampling.challenge_draws(gen, (B_OPEN,), N_DEG, dev)}
+    signs, u = k4_in[N_DEG]
     errs["K4"] = compare("K4 challenge kappa=36",
                          k_chal.challenge_select(u, signs, params.kappa),
                          k_chal.challenge_select_plain(u, signs, params.kappa))
-    k5_in = {}
-    for label, b, rows, num in K5_SHAPES:
+    for n in K4_LARGE:
+        k4_in[n] = sampling.challenge_draws(gen, (B_OPEN_LARGE[n],), n, dev)
+        sg, uu = k4_in[n]
+        sel = check_rows(uu.shape[0])
+        errs["K4"] = max(errs["K4"], compare(
+            f"K4 challenge N={n} B={uu.shape[0]} kappa=36 (rows {sel.numel()} of them)",
+            k_chal.challenge_select(uu, sg, params.kappa)[sel],
+            k_chal.challenge_select_plain(uu[sel], sg[sel], params.kappa)))
+    k5_in = []
+    errs["K5"] = 0
+    for label, b, rows, num, n in K5_SHAPES:
         # d a ternary challenge; m ternary r (num=1) or any int32 off the wire
-        d = centered((b, N_DEG), 1)
-        m = (centered((b, rows, N_DEG), 1) if num == 1 else
-             torch.randint(-2**31, 2**31, (b, rows, N_DEG), generator=gen, device=dev,
+        d = centered((b, n), 1)
+        m = (centered((b, rows, n), 1) if num == 1 else
+             torch.randint(-2**31, 2**31, (b, rows, n), generator=gen, device=dev,
                            dtype=torch.int64).to(torch.int32))
-        t = centered((b, rows, N_DEG))
-        k5_in[label] = (d, m, t, num)
-    errs["K5"] = max(
-        compare(f"K5 scalar_mul_add {label} B={d.shape[0]} rows={m.shape[1]} num={num}",
-                k_sma.scalar_mul_add(ring, d, m, t, num),
-                k_sma.scalar_mul_add_plain(ring, d, m, t, num))
-        for label, (d, m, t, num) in k5_in.items()
-    )
+        t = centered((b, rows, n))
+        k5_in.append((d, m, t))
+        kring = get_ring(n, q)
+        sel = check_rows(b) if n != N_DEG else torch.arange(b, device=dev)
+        errs["K5"] = max(errs["K5"], compare(
+            f"K5 scalar_mul_add {label} N={n} B={b} rows={rows} num={num}"
+            + (f" (batch elements {sel.numel()} of them)" if n != N_DEG else ""),
+            k_sma.scalar_mul_add(kring, d, m, t, num)[sel],
+            k_sma.scalar_mul_add_plain(kring, d[sel], m[sel], t[sel], num)))
 
     def wide_input(ring_, rows):
         """Centered int64 draws with, in row 0, the values K7 must take:
@@ -622,9 +655,8 @@ def main() -> int:
                 k6_v[nd] = v_full
             for b in batches:
                 v = v_full[:b]
-                half = min(K6_CHECK_ROWS, b) // 2
-                rows = torch.cat([torch.arange(half, device=dev),
-                                  torch.arange(b - half, b, device=dev)])
+                rows = check_rows(b)
+                half = rows.numel() // 2
                 for which, w3 in (("a1", lck.a1_dig), ("a2", lck.a2_dig)):
                     got = k_mv.matvec_digits_colblock(lring, w3, n, v, nd)[rows]
                     want = k_mv.matvec_digits_colblock_plain(lring, w3, n, v[rows], nd)
@@ -949,25 +981,33 @@ def main() -> int:
 
     # 7. K5 at its shapes: kernel, plain version, and the composed route it
     # replaced (K1 + plain to_mont + plain dot_hat + K2 + plain centered add)
-    def composed(d, m, t, num):
-        dm = ring.inv(ring.dot_hat(ring.fwd_const(d, num).unsqueeze(-2), ring.fwd(m, num)))
-        return zq.add_centered(ring.qctx, t, dm)
+    def composed(kring, d, m, t, num):
+        dm = kring.inv(kring.dot_hat(kring.fwd_const(d, num).unsqueeze(-2), kring.fwd(m, num)))
+        return zq.add_centered(kring.qctx, t, dm)
+
+    def k5_plain_chunked(kring, d, m, t, num):
+        """K5's plain version B_SUM batch elements at a time (its int64
+        planes of a full N=1024 batch would take tens of GB)."""
+        return torch.cat([k_sma.scalar_mul_add_plain(kring, *a, num)
+                          for a in zip(d.split(B_SUM), m.split(B_SUM), t.split(B_SUM))])
 
     k5_rows = []
-    for label, (d, m, t, num) in k5_in.items():
-        b, rows = m.shape[0], m.shape[1]
-        if not torch.equal(composed(d, m, t, num), k_sma.scalar_mul_add(ring, d, m, t, num)):
+    for (label, b, rows, num, n), (d, m, t) in zip(K5_SHAPES, k5_in):
+        kring = get_ring(n, q)
+        if not torch.equal(composed(kring, d, m, t, num),
+                           k_sma.scalar_mul_add(kring, d, m, t, num)):
             fail(f"K5 {label}: differs from the composed route")
-        kern = cuda_ms(lambda: k_sma.scalar_mul_add(ring, d, m, t, num), reps=10)
-        comp = cuda_ms(lambda: composed(d, m, t, num), reps=3)
-        plain = cuda_ms(lambda: k_sma.scalar_mul_add_plain(ring, d, m, t, num), reps=2)
-        bms, bby = k5_bound(b, rows, num, N_DEG)
-        cms, cby = k5_bound(b, rows, num, N_DEG, calibrated)
-        k5_rows.append((label, b, rows, num, kern, plain, comp, bms, bby, cms, cby))
-        print(f"  K5 {label} B={b} rows={rows} num={num}: kernel {kern:.3f} ms, plain "
+        kern = cuda_ms(lambda: k_sma.scalar_mul_add(kring, d, m, t, num), reps=10)
+        comp = cuda_ms(lambda: composed(kring, d, m, t, num), reps=3)
+        plain = cuda_ms(lambda: k5_plain_chunked(kring, d, m, t, num), reps=2)
+        bms, bby = k5_bound(b, rows, num, n)
+        cms, cby = k5_bound(b, rows, num, n, calibrated)
+        k5_rows.append((f"{label} N={n}", b, rows, num, kern, plain, comp, bms, bby, cms, cby))
+        print(f"  K5 {label} N={n} B={b} rows={rows} num={num}: kernel {kern:.3f} ms, plain "
               f"{plain:.3f} ms, composed route (K1 + dot_hat + K2 + add) {comp:.3f} ms, "
               f"bound {bms:.3f} ms ({bby}), calibrated bound {cms:.3f} ms ({cby}) on {smi}",
               flush=True)
+    del k5_in
 
     # 7. K1-K4, K7 and K8 against their plain versions, each beside its bound
     v3 = vs[3]
@@ -1020,9 +1060,7 @@ def main() -> int:
                             lambda c: matvec_bound(B_OPEN, kn, rows_n, 1)),
         "K4": (lambda: k_chal.challenge_select(u, signs, params.kappa),
                lambda: k_chal.challenge_select_plain(u, signs, params.kappa),
-               f"challenge B={B_OPEN}",
-               # 32 bisection steps of a compare and a count per lane
-               lambda c: bound(12 * B_OPEN * N_DEG, 32 * c.addmod * B_OPEN * N_DEG, c.rate)),
+               f"challenge B={B_OPEN}", lambda c: k4_bound(B_OPEN, N_DEG, c)),
         # open N=1024's key matvecs: y and z at 3 digits, r at 1
         "K6": (lambda: k_mv.matvec_digits_colblock(ring1024, w1024, 1024, k6_v[3], 3),
                lambda: k6_plain_chunked(k6_v[3], 3),
@@ -1056,6 +1094,14 @@ def main() -> int:
                 f"mac_chain chain={k_mac.CHAIN} [{K11_SHAPE[0]}, {K11_SHAPE[1]}]",
                 lambda c: k11_bound(x11.numel(), k_mac.CHAIN, c)),
     }
+    # K4 at the larger rings' open batches: kernel and bound
+    for n in K4_LARGE:
+        sg, uu = k4_in[n]
+        timed[f"K4 (N={n})"] = (
+            lambda sg=sg, uu=uu: k_chal.challenge_select(uu, sg, params.kappa),
+            lambda sg=sg, uu=uu: k_chal.challenge_select_plain(uu, sg, params.kappa),
+            f"challenge N={n} B={uu.shape[0]}",
+            lambda c, b=uu.shape[0], n=n: k4_bound(b, n, c))
     # K6 at the other larger rings' open batches, v_digits=3: kernel and bound
     for n in (2048, 4096):
         b, lring, lck = B_OPEN_LARGE[n], get_ring(n, q), large_ck[n]
@@ -1190,6 +1236,9 @@ def main() -> int:
             if k in ("K3", "K6", "K10") else {}),
          **({"int_mm_ms": int_mm.get(k)} if k in ("K3", "K6") else {}),
          **({"k3_on_2d_ms": k3_on_2d} if k == "K6" else {}),
+         **({"shapes_ms": {r[0]: r[4] for r in k5_rows}} if k == "K5" else {}),
+         **({"shapes_ms": {name: r[0] for name, r in results.items() if name.startswith("K4")}}
+            if k == "K4" else {}),
          **({"inv_ms": results[f"{k} (inv)"][0], "inv_plain_ms": results[f"{k} (inv)"][1]}
             if k in ("K9", "K10") else {})}
         for k, label, src, rep in meta

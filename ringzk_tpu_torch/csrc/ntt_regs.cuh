@@ -1,0 +1,241 @@
+// A negacyclic NTT whose plane lives in registers, for K5
+// (scalar_mul_add.cu).
+//
+// A plane of N = 2^L coefficients is held by VT = 2^(L-LE) threads (a
+// "group": one warp at N = 512, VT/32 warps above, and below N = 128 one
+// warp whose lanes past VT repeat the first VT), each with E = 2^LE
+// coefficients in registers. Which index bits a thread's registers hold is
+// the pass's layout: within a pass every butterfly stage runs on register
+// pairs, with no exchange and no barrier. Between passes the group writes
+// its plane to a shared-memory buffer and reads it back in the next layout,
+// one transpose with a warp (or group) barrier on each side. The stages
+// unroll: L, LE and the primes are template parameters.
+//
+// Layouts, forward (stage bits from L-1 down to 0; the inverse runs the
+// same passes backwards):
+//   pass 0: registers hold index bits {0, 1} and the top LE-2 bits, so
+//           each thread loads and stores 16-byte vectors, the warp's
+//           vectors contiguous; its stages are the top LE-2 bits;
+//   pass p: registers hold LE consecutive bits, the next LE stage bits
+//           down (the last pass the bits 0..LE-1).
+// At N = 512 (LE = 4): stages 8-7, 6-3 and 2-0, two transposes a
+// transform. The shared-memory index is XOR-swizzled on its low five bits
+// by the bits above them (a linear map found at compile time) so that no
+// layout's loads or stores meet a bank conflict.
+//
+// Butterflies are Harvey's lazy forms, as ringzk_tpu/ops/pallas/
+// ntt_kernel.py _fwd_stages_lazy / _inv_stages_lazy: forward values stay in
+// [0, 4p), inverse values in [0, 2p); all three CRT primes are below 2^30,
+// so 4p < 2^32. The caller reduces strictly afterwards (a Montgomery
+// product, or the Shoup product by N^-1), so the residues equal those of
+// the strict stages bit for bit.
+//
+// Twiddles `tw`: per prime [2][N] of uint2 (w, floor(w 2^32 / p)), psi_rev
+// then psi_inv_rev (ops/kernels/scalar_mul_add.py twiddle_pairs). Forward
+// and inverse read the same index for the stage on bit b and the pair
+// whose lower index is j: 2^(L-1-b) + (j >> (b+1)).
+#pragma once
+
+#include <cstdint>
+
+#include "modarith.cuh"
+
+namespace rz::regs {
+
+__host__ __device__ constexpr int popc_c(uint32_t v) {
+  int c = 0;
+  for (; v; v &= v - 1) ++c;
+  return c;
+}
+
+// The low bits of v placed, in order, on the set bits of mask.
+__host__ __device__ constexpr uint32_t deposit(uint32_t v, uint32_t mask) {
+  uint32_t out = 0;
+  for (int b = 0; b < 32; ++b)
+    if (mask >> b & 1u) {
+      out |= (v & 1u) << b;
+      v >>= 1;
+    }
+  return out;
+}
+
+// Registers a thread holds: 4 below N = 256, 8 at 256, 16 from 512 on.
+__host__ __device__ constexpr int le_for(int L) { return L <= 7 ? 2 : (L == 8 ? 3 : 4); }
+
+template <int L>
+struct Plan {
+  static constexpr int LE = le_for(L);
+  static constexpr int N = 1 << L, E = 1 << LE, VT = 1 << (L - LE);
+  static constexpr int kTop = LE - 2;  // top bits in pass 0
+  static constexpr int kPasses = 1 + (L - kTop + LE - 1) / LE;
+  static constexpr uint32_t kAll = (1u << L) - 1;
+
+  // forward stage bits of pass p: hi(p) down to lo(p) (none when hi < lo)
+  __host__ __device__ static constexpr int hi(int p) {
+    return p == 0 ? L - 1 : L - kTop - 1 - (p - 1) * LE;
+  }
+  __host__ __device__ static constexpr int lo(int p) {
+    return p == 0 ? L - kTop : (hi(p) - LE + 1 > 0 ? hi(p) - LE + 1 : 0);
+  }
+  // index bits held in registers in pass p
+  __host__ __device__ static constexpr uint32_t rmask(int p) {
+    return p == 0 ? 3u | (((1u << kTop) - 1) << (L - kTop))
+                  : ((1u << LE) - 1) << (lo(p) > 0 ? lo(p) : 0);
+  }
+};
+
+// The swizzle: bit h >= 5 of an index flips the low five bits by a mask,
+// five bits each in the word below (mask of bit h at 5 * (h - 5)). A
+// layout is free of bank conflicts when its lane bits (the lowest five
+// index bits outside its registers, fewer when VT < 32) reach independent
+// bank bits: a low bit its own, a high bit its mask. The masks are the
+// first solution of a depth-first search over them in increasing order;
+// conflict_free() checks every layout of the plan at compile time.
+__host__ __device__ constexpr uint64_t swizzle_masks(int L) {
+  switch (L) {
+    case 6: return 0x5;
+    case 7: return 0x2aa;
+    case 8: return 0x64a2;
+    case 9: return 0xa2041;
+    case 10: return 0xc1041;
+    case 11: return 0x8a0a2;
+    case 12: return 0x920c1;
+    case 13: return 0xa2041;
+    default: return 0;
+  }
+}
+
+// j with its low five bits flipped by the masks of its set bits above them
+template <int L>
+__host__ __device__ constexpr uint32_t swizzle(uint32_t j) {
+  uint32_t s = 0;
+  for (int h = 5; h < L; ++h)
+    if (j >> h & 1u) s ^= static_cast<uint32_t>(swizzle_masks(L) >> (5 * (h - 5))) & 31u;
+  return j ^ s;
+}
+
+template <int L>
+__host__ __device__ constexpr bool conflict_free() {
+  using P = Plan<L>;
+  for (int p = 0; p < P::kPasses; ++p) {
+    const uint32_t free = ~P::rmask(p) & P::kAll;
+    uint32_t basis[5] = {};
+    int n = 0, r = 0;
+    for (int b = 0; b < L && n < 5; ++b) {
+      if (!(free >> b & 1u)) continue;
+      ++n;
+      uint32_t x = swizzle<L>(1u << b) & 31u;  // the bank bits index bit b moves
+      for (int i = 0; i < r; ++i)
+        if ((x ^ basis[i]) < x) x ^= basis[i];
+      if (x) basis[r++] = x;
+    }
+    if (r < n) return false;
+  }
+  return true;
+}
+
+// Barrier of one group: the warp, or GT threads under named barrier 1 + g.
+template <int GT>
+__device__ __forceinline__ void group_sync(int g) {
+  if constexpr (GT == 32)
+    __syncwarp();
+  else
+    __barrier_sync_count(1 + g, GT);
+}
+
+// the unswizzled index bits of thread vt in pass p
+template <int L, int p>
+__device__ __forceinline__ uint32_t index_part(uint32_t vt) {
+  constexpr uint32_t free = ~Plan<L>::rmask(p) & Plan<L>::kAll;
+  uint32_t j = 0;
+  int k = 0;
+#pragma unroll
+  for (int b = 0; b < L; ++b)
+    if (free >> b & 1u) j |= (vt >> k++ & 1u) << b;
+  return j;
+}
+
+// Plane of one group in layout `from` -> layout `to`, through buf [N].
+template <int L, int GT, int from, int to>
+__device__ __forceinline__ void transpose(uint32_t (&x)[Plan<L>::E], uint32_t* buf,
+                                          uint32_t vt, bool writer, int g) {
+  using P = Plan<L>;
+  static_assert(conflict_free<L>(), "a layout of this plan meets bank conflicts");
+  group_sync<GT>(g);  // every reader of the last transpose is done
+  if (writer) {
+    const uint32_t t = swizzle<L>(index_part<L, from>(vt));
+#pragma unroll
+    for (int e = 0; e < P::E; ++e) buf[t ^ swizzle<L>(deposit(e, P::rmask(from)))] = x[e];
+  }
+  group_sync<GT>(g);
+  const uint32_t t = swizzle<L>(index_part<L, to>(vt));
+#pragma unroll
+  for (int e = 0; e < P::E; ++e) x[e] = buf[t ^ swizzle<L>(deposit(e, P::rmask(to)))];
+}
+
+// The stages of pass p, forward (Cooley-Tukey, descending bits) or
+// inverse (Gentleman-Sande, ascending bits), on the registers x.
+template <int L, int p, bool kInverse>
+__device__ __forceinline__ void pass_stages(uint32_t (&x)[Plan<L>::E],
+                                            const uint2* __restrict__ tw, uint32_t vt,
+                                            uint32_t prime) {
+  using P = Plan<L>;
+  constexpr uint32_t R = P::rmask(p);
+  constexpr int nst = P::hi(p) - P::lo(p) + 1;
+  const uint32_t two_p = 2 * prime;
+  const uint32_t tj = index_part<L, p>(vt);
+#pragma unroll
+  for (int s = 0; s < nst; ++s) {
+    const int b = kInverse ? P::lo(p) + s : P::hi(p) - s;
+    const int rb = popc_c(R & ((1u << b) - 1));  // register bit of index bit b
+    const uint2* twb = tw + (1u << (L - 1 - b)) + (tj >> (b + 1));
+#pragma unroll
+    for (int e0 = 0; e0 < P::E; ++e0) {
+      if (e0 >> rb & 1) continue;
+      const int e1 = e0 | 1 << rb;
+      const uint2 w = __ldg(twb + (deposit(e0, R) >> (b + 1)));
+      if (!kInverse) {
+        uint32_t x0 = x[e0];
+        x0 = min(x0, x0 - two_p);  // [0, 4p) -> [0, 2p)
+        const uint32_t pr = w.x * x[e1] - __umulhi(w.y, x[e1]) * prime;  // [0, 2p)
+        x[e0] = x0 + pr;
+        x[e1] = x0 + two_p - pr;
+      } else {
+        const uint32_t x0 = x[e0], x1 = x[e1];
+        const uint32_t s0 = x0 + x1;
+        const uint32_t df = x0 + two_p - x1;  // (0, 4p)
+        x[e0] = min(s0, s0 - two_p);
+        x[e1] = w.x * df - __umulhi(w.y, df) * prime;
+      }
+    }
+  }
+}
+
+// Forward transform from pass p on: x in pass 0's layout, each value in
+// [0, 4p) -> the NTT image in the last pass's layout, in [0, 4p).
+template <int L, int GT, int p = 0>
+__device__ __forceinline__ void fwd(uint32_t (&x)[Plan<L>::E], uint32_t* buf,
+                                    const uint2* __restrict__ tw, uint32_t vt, bool writer,
+                                    int g, uint32_t prime) {
+  if constexpr (p < Plan<L>::kPasses) {
+    if constexpr (p > 0) transpose<L, GT, p - 1, p>(x, buf, vt, writer, g);
+    pass_stages<L, p, false>(x, tw, vt, prime);
+    fwd<L, GT, p + 1>(x, buf, tw, vt, writer, g, prime);
+  }
+}
+
+// Inverse transform without the N^-1 scaling, from pass p down: x in the
+// last pass's layout, in [0, 2p) -> pass 0's layout, in [0, 2p). `tw` is
+// the inverse table.
+template <int L, int GT, int p = Plan<L>::kPasses - 1>
+__device__ __forceinline__ void inv(uint32_t (&x)[Plan<L>::E], uint32_t* buf,
+                                    const uint2* __restrict__ tw, uint32_t vt, bool writer,
+                                    int g, uint32_t prime) {
+  if constexpr (p >= 0) {
+    if constexpr (p < Plan<L>::kPasses - 1) transpose<L, GT, p + 1, p>(x, buf, vt, writer, g);
+    pass_stages<L, p, true>(x, tw, vt, prime);
+    inv<L, GT, p - 1>(x, buf, tw, vt, writer, g, prime);
+  }
+}
+
+}  // namespace rz::regs

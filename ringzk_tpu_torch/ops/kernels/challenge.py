@@ -12,7 +12,7 @@ import torch
 
 from . import check, launch, on_cuda
 
-MAX_N = 8192  # 1024 threads x 8 lanes per thread
+MIN_N, MAX_N = 4, 8192  # a warp of 4-key vectors per row up to 1024; 8 warps at 8192
 
 
 def challenge_select_plain(u: torch.Tensor, signs: torch.Tensor, kappa: int) -> torch.Tensor:
@@ -31,8 +31,8 @@ def challenge_select(u: torch.Tensor, signs: torch.Tensor, kappa: int) -> torch.
         raise ValueError(f"challenge_select: need 1 <= kappa < N, got kappa={kappa} N={n}")
     if not on_cuda("challenge_select", u, signs):
         return challenge_select_plain(u, signs, kappa)
-    if n & (n - 1) or n > MAX_N:
-        raise ValueError(f"challenge_select: N={n} must be a power of two <= {MAX_N}")
+    if n & (n - 1) or not MIN_N <= n <= MAX_N:
+        raise ValueError(f"challenge_select: N={n} must be a power of two in {MIN_N}..{MAX_N}")
     out = torch.empty_like(u)
     launch("challenge_select", "rz_challenge_select", u.device, u, signs, out,
            rows, n, kappa)

@@ -14,9 +14,23 @@ from __future__ import annotations
 
 import torch
 
-from . import check, launch, on_cuda
+from . import check, device_cache, launch, on_cuda
 from .ntt import fwd_all_plain, inv_all_plain, kernel_consts, twiddles
 from .. import zq
+
+MIN_N, MAX_N = 4, 8192  # a thread holds at least one 16-byte vector of a row
+
+
+def twiddle_pairs(ring, device) -> torch.Tensor:
+    """[primes, 2, N, 2] int32: per prime the forward table (psi_rev, its
+    Shoup companion) and the inverse one (psi_inv_rev, its companion) as
+    (w, w') pairs, the uint2 table ``csrc/ntt_regs.cuh`` reads."""
+
+    def make():
+        tw = twiddles(ring, device)
+        return torch.stack([tw[:, 0:2], tw[:, 2:4]], dim=1).transpose(-1, -2).contiguous()
+
+    return device_cache(ring, ("twiddle_pairs", str(device)), make)
 
 
 def scalar_mul_add_plain(ring, d: torch.Tensor, m: torch.Tensor, t: torch.Tensor,
@@ -41,7 +55,9 @@ def scalar_mul_add(ring, d: torch.Tensor, m: torch.Tensor, t: torch.Tensor,
         raise ValueError(f"scalar_mul_add: num={num} outside 1..{ring.num_primes}")
     if not on_cuda("scalar_mul_add", d, m, t):
         return scalar_mul_add_plain(ring, d, m, t, num)
+    if not MIN_N <= n <= MAX_N:
+        raise ValueError(f"scalar_mul_add: N={n} outside {MIN_N}..{MAX_N}")
     out = torch.empty_like(m)
     launch("scalar_mul_add", "rz_scalar_mul_add", d.device, d, m, t, out,
-           twiddles(ring, d.device), kernel_consts(ring, num, d.device), num, b, rows, n)
+           twiddle_pairs(ring, d.device), kernel_consts(ring, num, d.device), num, b, rows, n)
     return out

@@ -247,15 +247,19 @@ def test_n1024_open_roundtrip_runs_k6_not_k3(cuda):
     assert kernels.LAUNCHES["challenge_select"] > 0 and kernels.LAUNCHES["scalar_mul_add"] > 0
 
 
-@pytest.mark.parametrize("n", [16, 512, 4096])
+@pytest.mark.parametrize("q", [Q, 32749, 2**32 - 5])
+@pytest.mark.parametrize("n", [16, 32, 64, 512, 1024, 2048, 4096, 8192])
 @pytest.mark.parametrize("rows", [1, 3, 12])
-def test_scalar_mul_add_kernel_matches_plain(cuda, n, rows):
-    """K5 at every prime count, with m and t over the whole int32 range
-    and a batch (37) that is no multiple of any tile."""
-    rng = np.random.default_rng(n + rows)
-    ring = get_ring(n, Q)
+def test_scalar_mul_add_kernel_matches_plain(cuda, n, rows, q):
+    """K5 at every prime count and every plan of its register transform
+    (N=8192 also takes the largest shared-memory request), at the default
+    modulus and at the narrow 32749 and 2^32 - 5 (the fold constants
+    depend on q), with d over the centered range and m and t over the whole
+    int32 range, and a batch (37) that is no multiple of any tile."""
+    rng = np.random.default_rng(n + rows + (q % 1000 if q != Q else 0))
+    ring = get_ring(n, q)
     full = np.iinfo(np.int32)
-    d = centered(rng, (37, n)).to(cuda)
+    d = centered(rng, (37, n), min(q // 2, full.max)).to(cuda)
     m = torch.from_numpy(rng.integers(full.min, full.max, size=(37, rows, n),
                                       endpoint=True).astype(np.int32)).to(cuda)
     t = torch.from_numpy(rng.integers(full.min, full.max, size=(37, rows, n),
@@ -263,13 +267,20 @@ def test_scalar_mul_add_kernel_matches_plain(cuda, n, rows):
     for num in (1, 2, 3):
         got = k_sma.scalar_mul_add(ring, d, m, t, num)
         assert torch.equal(got, k_sma.scalar_mul_add_plain(ring, d, m, t, num)), num
-    got = ring.scalar_mul_add(d, m, t, 3)
-    assert torch.equal(got.cpu(), ring.scalar_mul_add(d.cpu(), m.cpu(), t.cpu(), 3))
+    if n <= 4096:  # the CPU's plain version, through the ring's entry point
+        got = ring.scalar_mul_add(d, m, t, 3)
+        assert torch.equal(got.cpu(), ring.scalar_mul_add(d.cpu(), m.cpu(), t.cpu(), 3))
 
 
 @pytest.mark.parametrize("n,kappa,alphabet", [(16, 7, 2**32), (512, 36, 2**32),
-                                              (512, 36, 3), (2048, 36, 5), (512, 511, 2)])
+                                              (512, 36, 3), (2048, 36, 5), (512, 511, 2),
+                                              (4, 1, 2**32), (64, 63, 2**32), (512, 1, 2**32),
+                                              (512, 511, 1), (1024, 36, 2**32),
+                                              (8192, 36, 2**32), (8192, 1, 3),
+                                              (8192, 8191, 2**32), (8192, 100, 1)])
 def test_challenge_kernel_matches_plain(cuda, n, kappa, alphabet):
+    """K4 from N=4 to 8192, kappa from 1 to N-1, a one-key alphabet (every
+    lane of a row ties), on 50 rows (no multiple of a block's 8)."""
     rng = np.random.default_rng(n + kappa + alphabet % 97)
     u = rng.integers(0, alphabet, size=(50, n), dtype=np.uint64).astype(np.uint32)
     u = torch.from_numpy(u.view(np.int32)).to(cuda)

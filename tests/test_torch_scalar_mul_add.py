@@ -15,6 +15,7 @@ import torch
 from ringzk_tpu.ops import ntt as jntt
 from ringzk_tpu.ops.pallas import ntt_kernel
 from ringzk_tpu_torch.ops import ntt as tntt
+from ringzk_tpu_torch.ops.kernels import ntt as tntt_kernels
 from ringzk_tpu_torch.ops.kernels import scalar_mul_add as k_sma
 
 torch.set_num_threads(2)
@@ -69,6 +70,40 @@ def test_scalar_mul_add_matches_pallas_interpret(rows, num, extremes):
     for fn in (ntt_kernel.scalar_mul_add_pallas, ntt_kernel.scalar_mul_add_pallas_v2):
         want = np.asarray(fn(jring, d, m, t, num, interpret=True))
         np.testing.assert_array_equal(got.numpy(), want, err_msg=fn.__name__)
+
+
+@pytest.mark.parametrize("q", [32749, 2**32 - 5])
+@pytest.mark.parametrize("rows,num", [(3, 1), (1, 2), (2, 3)])
+def test_scalar_mul_add_narrow_moduli_match_jax(q, rows, num):
+    """The fold constants of K5 (``kernel_consts`` c[24..38]) depend on q:
+    at the JAX package's other narrow moduli, N=128, d over the whole
+    centered range of q and m, t over the whole int32 range, the plain K5
+    against the composed chain and against ``scalar_mul_add_pallas_v2``
+    (interpret)."""
+    n = 128
+    rng = np.random.default_rng(q % 1000 + 10 * rows + num)
+    full = np.iinfo(np.int32)
+    d = rng.integers(-(q // 2), q // 2 + 1, size=(4, n)).astype(np.int32)
+    m = rng.integers(full.min, full.max, size=(4, rows, n), endpoint=True).astype(np.int32)
+    t = rng.integers(full.min, full.max, size=(4, rows, n), endpoint=True).astype(np.int32)
+    jring = jntt.get_ring(n, q)
+    got = tntt.get_ring(n, q).scalar_mul_add(*(torch.from_numpy(a) for a in (d, m, t)), num)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jring.scalar_mul_add(d, m, t, num)))
+    want = ntt_kernel.scalar_mul_add_pallas_v2(jring, d, m, t, num, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_twiddle_pairs_interleave_the_tables():
+    """The kernel's uint2 table: per prime [forward, inverse][N] of (w, w')
+    pairs from the four twiddle rows."""
+    ring = tntt.get_ring(64, Q)
+    tw = k_sma.twiddle_pairs(ring, "cpu")
+    rows = tntt_kernels.twiddles(ring, "cpu")
+    assert tw.shape == (ring.num_primes, 2, 64, 2) and tw.is_contiguous()
+    for i in range(ring.num_primes):
+        for which in (0, 1):
+            assert torch.equal(tw[i, which, :, 0], rows[i, 2 * which])
+            assert torch.equal(tw[i, which, :, 1], rows[i, 2 * which + 1])
 
 
 def test_structure_axes_flatten_like_jax():
