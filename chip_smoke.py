@@ -58,8 +58,8 @@ runs K9-K11. Phases, each fatal on failure:
    then K5 at each of its shapes (the five N=512 ones, and open's response
    and verify at N=1024 and N=4096) against its plain version and against
    the composed route it replaced (K1, dot_hat, K2 and the centered add),
-   and K1-K4 (K4 also at open N=1024 and N=4096) and K6-K11 against their
-   plain versions, each beside its bound
+   and K1-K4 (K4 also at open N=1024 and N=4096) and K6-K11 (K7 and K8 at
+   each shape of [3]) against their plain versions, each beside its bound
    and its calibrated bound (K10 forward and inverse at the calibration's
    393,216 rows also equal to their plain versions); K6 also beside K3 on
    the side-by-side layout of the same operator; K3, K6 and K10 beside
@@ -606,32 +606,32 @@ def main() -> int:
         x[0, :6] = torch.tensor([ring_.q // 2, -(ring_.q // 2), 2**63 - 1, -2**63, 0, -1])
         return x
 
-    # the wide open path's shapes: commit and verify fwd over 3B rows (num 3,
-    # and num 1 in the response), fwd(c1) at num 2 and fwd(d) over B rows
-    xw3, xw1, xw63 = (wide_input(ring33, 3 * B_OPEN), wide_input(ring33, B_OPEN),
-                      wide_input(ring63, B_OPEN))
+    # K7 and K8 at the wide open path's shapes, (q, num, rows), checked here
+    # and timed in [7]: commit and verify fwd over 3B rows (num 3, and num 1
+    # in the response), fwd(c1) at num 2 and fwd(d) over B rows; the
+    # inverses of the key matvecs at num 3 over B rows, of verify's c1.d at
+    # num 2, of the response's d.r at num 1 over 3B rows; q = 2^63-25 at
+    # its five primes, the fifth above 2^30 (strict butterflies)
+    wrings = {"2^33+9": ring33, "2^63-25": ring63}
+    k7_shapes = (("2^33+9", 3, 3 * B_OPEN), ("2^33+9", 2, B_OPEN), ("2^33+9", 1, B_OPEN),
+                 ("2^33+9", 1, 3 * B_OPEN), ("2^63-25", 5, B_OPEN))
+    k8_shapes = (("2^33+9", 3, B_OPEN), ("2^33+9", 2, B_OPEN), ("2^33+9", 1, 3 * B_OPEN),
+                 ("2^63-25", 5, B_OPEN))
+    k7_in = {(label, rows): wide_input(wrings[label], rows)
+             for label, _, rows in k7_shapes}
+    k8_in = {(label, num): residues(wrings[label], num, rows) for label, num, rows in k8_shapes}
     errs["K7"] = max(
-        compare(f"K7 fwd_wide q={label} num={num} rows={x.shape[0]}",
-                k_wide.fwd_wide_all(ring_, x, num), k_wide.fwd_wide_all_plain(ring_, x, num))
-        for label, ring_, x, num in (("2^33+9", ring33, xw3, 3), ("2^33+9", ring33, xw1, 2),
-                                     ("2^33+9", ring33, xw1, 1), ("2^33+9", ring33, xw3, 1),
-                                     ("2^63-25", ring63, xw63, 5))
+        compare(f"K7 fwd_wide q={label} num={num} rows={rows}",
+                k_wide.fwd_wide_all(wrings[label], k7_in[label, rows], num),
+                k_wide.fwd_wide_all_plain(wrings[label], k7_in[label, rows], num))
+        for label, num, rows in k7_shapes
     )
-    del xw1, xw63
-    # the inverses: the key matvecs at num 3 over B rows, verify's c1.d at
-    # num 2, the response's d.r at num 1 over 3B rows
-    wresid = {(label, num): (ring_, residues(ring_, num, rows))
-              for label, ring_, num, rows in (("2^33+9", ring33, 3, B_OPEN),
-                                              ("2^33+9", ring33, 2, B_OPEN),
-                                              ("2^33+9", ring33, 1, 3 * B_OPEN),
-                                              ("2^63-25", ring63, 5, B_OPEN))}
     errs["K8"] = max(
-        compare(f"K8 inv_wide q={label} num={num} rows={xh.shape[1]}",
-                k_wide.inv_wide_all(ring_, xh), k_wide.inv_wide_all_plain(ring_, xh))
-        for (label, num), (ring_, xh) in wresid.items()
+        compare(f"K8 inv_wide q={label} num={num} rows={rows}",
+                k_wide.inv_wide_all(wrings[label], k8_in[label, num]),
+                k_wide.inv_wide_all_plain(wrings[label], k8_in[label, num]))
+        for label, num, rows in k8_shapes
     )
-    wr3 = wresid[("2^33+9", 3)][1]
-    del wresid
 
     # K6 at each larger-ring path's batch, v_digits 1 (r) and 3 (y, z), on
     # both row blocks of the key: the launch runs at the full batch, and the
@@ -1070,14 +1070,6 @@ def main() -> int:
                             lambda: k6_plain_chunked(k6_v[1], 1),
                             f"matvec_colblock N=1024 v_digits=1 B={B_OPEN}",
                             lambda c: matvec_bound(B_OPEN, 3 * 1024, 1024, 1)),
-        # the wide open path's commit fwd(r) and its key matvecs' inverse
-        "K7": (lambda: k_wide.fwd_wide_all(ring33, xw3, 3),
-               lambda: k_wide.fwd_wide_all_plain(ring33, xw3, 3),
-               f"fwd_wide q=2^33+9 num=3 rows={3 * B_OPEN}",
-               lambda c: k7_bound(3 * B_OPEN, 3, N_DEG, c)),
-        "K8": (lambda: k_wide.inv_wide_all(ring33, wr3),
-               lambda: k_wide.inv_wide_all_plain(ring33, wr3),
-               f"inv_wide q=2^33+9 num=3 rows={B_OPEN}", lambda c: k8_bound(B_OPEN, 3, N_DEG, c)),
         # the calibration's roofline shape: one prime over 393,216 rows
         "K9": (lambda: k_one.fwd_one(ring, 0, x9), lambda: k_one.fwd_one_plain(ring, 0, x9),
                f"fwd_one prime 0 rows={K9_ROWS}", lambda c: k9_bound(K9_ROWS, N_DEG, False, c)),
@@ -1094,6 +1086,22 @@ def main() -> int:
                 f"mac_chain chain={k_mac.CHAIN} [{K11_SHAPE[0]}, {K11_SHAPE[1]}]",
                 lambda c: k11_bound(x11.numel(), k_mac.CHAIN, c)),
     }
+    # K7 and K8 at each shape of [3]: the first of each is the kernels
+    # line's row
+    for j, (label, num, rows) in enumerate(k7_shapes):
+        x, wring = k7_in[label, rows], wrings[label]
+        timed["K7" if j == 0 else f"K7 (q={label} num={num} rows={rows})"] = (
+            lambda x=x, wring=wring, num=num: k_wide.fwd_wide_all(wring, x, num),
+            lambda x=x, wring=wring, num=num: k_wide.fwd_wide_all_plain(wring, x, num),
+            f"fwd_wide q={label} num={num} rows={rows}",
+            lambda c, rows=rows, num=num: k7_bound(rows, num, N_DEG, c))
+    for j, (label, num, rows) in enumerate(k8_shapes):
+        xh, wring = k8_in[label, num], wrings[label]
+        timed["K8" if j == 0 else f"K8 (q={label} num={num} rows={rows})"] = (
+            lambda xh=xh, wring=wring: k_wide.inv_wide_all(wring, xh),
+            lambda xh=xh, wring=wring: k_wide.inv_wide_all_plain(wring, xh),
+            f"inv_wide q={label} num={num} rows={rows}",
+            lambda c, rows=rows, num=num: k8_bound(rows, num, N_DEG, c))
     # K4 at the larger rings' open batches: kernel and bound
     for n in K4_LARGE:
         sg, uu = k4_in[n]
@@ -1239,6 +1247,8 @@ def main() -> int:
          **({"shapes_ms": {r[0]: r[4] for r in k5_rows}} if k == "K5" else {}),
          **({"shapes_ms": {name: r[0] for name, r in results.items() if name.startswith("K4")}}
             if k == "K4" else {}),
+         **({"shapes_ms": {r[4]: r[0] for name, r in results.items() if name.split()[0] == k}}
+            if k in ("K7", "K8") else {}),
          **({"inv_ms": results[f"{k} (inv)"][0], "inv_plain_ms": results[f"{k} (inv)"][1]}
             if k in ("K9", "K10") else {})}
         for k, label, src, rep in meta

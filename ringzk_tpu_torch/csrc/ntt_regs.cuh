@@ -1,5 +1,5 @@
 // A negacyclic NTT whose plane lives in registers, for K5
-// (scalar_mul_add.cu).
+// (scalar_mul_add.cu) and K7/K8 (ntt_wide.cu).
 //
 // A plane of N = 2^L coefficients is held by VT = 2^(L-LE) threads (a
 // "group": one warp at N = 512, VT/32 warps above, and below N = 128 one
@@ -9,7 +9,8 @@
 // pairs, with no exchange and no barrier. Between passes the group writes
 // its plane to a shared-memory buffer and reads it back in the next layout,
 // one transpose with a warp (or group) barrier on each side. The stages
-// unroll: L, LE and the primes are template parameters.
+// unroll: L, LE and the butterfly form are template parameters; the prime
+// is a run-time value.
 //
 // Layouts, forward (stage bits from L-1 down to 0; the inverse runs the
 // same passes backwards):
@@ -17,21 +18,30 @@
 //           each thread loads and stores 16-byte vectors, the warp's
 //           vectors contiguous; its stages are the top LE-2 bits;
 //   pass p: registers hold LE consecutive bits, the next LE stage bits
-//           down (the last pass the bits 0..LE-1).
+//           down (the last pass the bits 0..LE-1, so E consecutive
+//           coefficients a thread).
 // At N = 512 (LE = 4): stages 8-7, 6-3 and 2-0, two transposes a
 // transform. The shared-memory index is XOR-swizzled on its low five bits
 // by the bits above them (a linear map found at compile time) so that no
 // layout's loads or stores meet a bank conflict.
 //
-// Butterflies are Harvey's lazy forms, as ringzk_tpu/ops/pallas/
-// ntt_kernel.py _fwd_stages_lazy / _inv_stages_lazy: forward values stay in
-// [0, 4p), inverse values in [0, 2p); all three CRT primes are below 2^30,
-// so 4p < 2^32. The caller reduces strictly afterwards (a Montgomery
-// product, or the Shoup product by N^-1), so the residues equal those of
-// the strict stages bit for bit.
+// Two butterfly forms, chosen per prime by the rule of
+// ringzk_tpu/ops/pallas/ntt_kernel.py _fwd_stages / _inv_stages:
+//   lazy (kStrict = false), for 4p < 2^32 (p < 2^30: the three base CRT
+//     primes and 469762049): Harvey's forms, as _fwd_stages_lazy /
+//     _inv_stages_lazy; forward values stay in [0, 4p), inverse values in
+//     [0, 2p);
+//   strict (kStrict = true), for 2^30 <= p < 2^31 (the wide rings'
+//     extension primes 2013265921, 2130706433, 1811939329, 2113929217,
+//     where 4p no longer fits a word): every add, subtract and Shoup
+//     product reduced to [0, p), as _fwd_stages_strict / _inv_stages_strict;
+//     2p < 2^32, so no value leaves uint32.
+// The caller reduces strictly afterwards (a Montgomery product, the Shoup
+// product by N^-1, or two conditional subtracts), so the residues equal
+// those of the strict stages bit for bit for inputs in [0, p).
 //
 // Twiddles `tw`: per prime [2][N] of uint2 (w, floor(w 2^32 / p)), psi_rev
-// then psi_inv_rev (ops/kernels/scalar_mul_add.py twiddle_pairs). Forward
+// then psi_inv_rev (ops/kernels/ntt.py twiddle_pairs). Forward
 // and inverse read the same index for the stage on bit b and the pair
 // whose lower index is j: 2^(L-1-b) + (j >> (b+1)).
 #pragma once
@@ -174,8 +184,9 @@ __device__ __forceinline__ void transpose(uint32_t (&x)[Plan<L>::E], uint32_t* b
 }
 
 // The stages of pass p, forward (Cooley-Tukey, descending bits) or
-// inverse (Gentleman-Sande, ascending bits), on the registers x.
-template <int L, int p, bool kInverse>
+// inverse (Gentleman-Sande, ascending bits), on the registers x, in the
+// lazy or the strict form (see the header).
+template <int L, int p, bool kInverse, bool kStrict = false>
 __device__ __forceinline__ void pass_stages(uint32_t (&x)[Plan<L>::E],
                                             const uint2* __restrict__ tw, uint32_t vt,
                                             uint32_t prime) {
@@ -194,7 +205,25 @@ __device__ __forceinline__ void pass_stages(uint32_t (&x)[Plan<L>::E],
       if (e0 >> rb & 1) continue;
       const int e1 = e0 | 1 << rb;
       const uint2 w = __ldg(twb + (deposit(e0, R) >> (b + 1)));
-      if (!kInverse) {
+      if constexpr (kStrict) {
+        // [0, p) in and out; min(v, v - p) reduces v < 2p, min(d, d + p) a
+        // wrapped difference
+        const uint32_t x0 = x[e0], x1 = x[e1];
+        if (!kInverse) {
+          uint32_t pr = w.x * x1 - __umulhi(w.y, x1) * prime;
+          pr = min(pr, pr - prime);
+          const uint32_t s0 = x0 + pr, df = x0 - pr;
+          x[e0] = min(s0, s0 - prime);
+          x[e1] = min(df, df + prime);
+        } else {
+          const uint32_t s0 = x0 + x1;
+          uint32_t df = x0 - x1;
+          df = min(df, df + prime);
+          const uint32_t pr = w.x * df - __umulhi(w.y, df) * prime;
+          x[e0] = min(s0, s0 - prime);
+          x[e1] = min(pr, pr - prime);
+        }
+      } else if (!kInverse) {
         uint32_t x0 = x[e0];
         x0 = min(x0, x0 - two_p);  // [0, 4p) -> [0, 2p)
         const uint32_t pr = w.x * x[e1] - __umulhi(w.y, x[e1]) * prime;  // [0, 2p)
@@ -211,30 +240,31 @@ __device__ __forceinline__ void pass_stages(uint32_t (&x)[Plan<L>::E],
   }
 }
 
-// Forward transform from pass p on: x in pass 0's layout, each value in
-// [0, 4p) -> the NTT image in the last pass's layout, in [0, 4p).
-template <int L, int GT, int p = 0>
+// Forward transform from pass p on: x in pass 0's layout -> the NTT image
+// in the last pass's layout. Lazy: values in [0, 4p) in and out; strict:
+// [0, p).
+template <int L, int GT, bool kStrict = false, int p = 0>
 __device__ __forceinline__ void fwd(uint32_t (&x)[Plan<L>::E], uint32_t* buf,
                                     const uint2* __restrict__ tw, uint32_t vt, bool writer,
                                     int g, uint32_t prime) {
   if constexpr (p < Plan<L>::kPasses) {
     if constexpr (p > 0) transpose<L, GT, p - 1, p>(x, buf, vt, writer, g);
-    pass_stages<L, p, false>(x, tw, vt, prime);
-    fwd<L, GT, p + 1>(x, buf, tw, vt, writer, g, prime);
+    pass_stages<L, p, false, kStrict>(x, tw, vt, prime);
+    fwd<L, GT, kStrict, p + 1>(x, buf, tw, vt, writer, g, prime);
   }
 }
 
 // Inverse transform without the N^-1 scaling, from pass p down: x in the
-// last pass's layout, in [0, 2p) -> pass 0's layout, in [0, 2p). `tw` is
-// the inverse table.
-template <int L, int GT, int p = Plan<L>::kPasses - 1>
+// last pass's layout -> pass 0's layout. Lazy: values in [0, 2p) in and
+// out; strict: [0, p). `tw` is the inverse table.
+template <int L, int GT, bool kStrict = false, int p = Plan<L>::kPasses - 1>
 __device__ __forceinline__ void inv(uint32_t (&x)[Plan<L>::E], uint32_t* buf,
                                     const uint2* __restrict__ tw, uint32_t vt, bool writer,
                                     int g, uint32_t prime) {
   if constexpr (p >= 0) {
     if constexpr (p < Plan<L>::kPasses - 1) transpose<L, GT, p + 1, p>(x, buf, vt, writer, g);
-    pass_stages<L, p, true>(x, tw, vt, prime);
-    inv<L, GT, p - 1>(x, buf, tw, vt, writer, g, prime);
+    pass_stages<L, p, true, kStrict>(x, tw, vt, prime);
+    inv<L, GT, kStrict, p - 1>(x, buf, tw, vt, writer, g, prime);
   }
 }
 

@@ -1,7 +1,7 @@
 // The NTT stages and the Garner fold on rows held in shared memory, shared
-// by K1/K2 (ntt.cu), K9 (ntt_one.cu) and K7/K8 (ntt_wide.cu). K5
-// (scalar_mul_add.cu) runs its own transform (ntt_regs.cuh) and reads only
-// the constant block below.
+// by K1/K2 (ntt.cu) and K9 (ntt_one.cu). K5 (scalar_mul_add.cu) and K7/K8
+// (ntt_wide.cu) run the register-resident transform (ntt_regs.cuh); K5
+// reads the constant block below.
 //
 // A block holds `np` planes of one row, plane j at s + j*n, each reduced to
 // [0, p) for its prime. Every stage reduces strictly to [0, p), so the

@@ -19,6 +19,9 @@ from . import check, device_cache, launch, on_cuda
 from ..u64 import narrow, widen
 
 _GARNER = 24  # offset of the Garner block in the constant array (ntt_stages.cuh)
+# Ring degrees of the register-resident transform (csrc/ntt_regs.cuh, K5, K7
+# and K8): a thread holds at least one 16-byte vector of a row.
+MIN_N, MAX_N = 4, 8192
 
 
 def twiddles(ring, device) -> torch.Tensor:
@@ -33,6 +36,19 @@ def twiddles(ring, device) -> torch.Tensor:
         return torch.from_numpy(np.stack(rows).view(np.int32)).to(device)
 
     return device_cache(ring, ("twiddles", str(device)), make)
+
+
+def twiddle_pairs(ring, device) -> torch.Tensor:
+    """[primes, 2, N, 2] int32: per prime the forward table (psi_rev, its
+    Shoup companion) and the inverse one (psi_inv_rev, its companion) as
+    (w, w') pairs, the uint2 table ``csrc/ntt_regs.cuh`` reads (K5, K7,
+    K8)."""
+
+    def make():
+        tw = twiddles(ring, device)
+        return torch.stack([tw[:, 0:2], tw[:, 2:4]], dim=1).transpose(-1, -2).contiguous()
+
+    return device_cache(ring, ("twiddle_pairs", str(device)), make)
 
 
 def kernel_consts(ring, num: int, device) -> torch.Tensor:

@@ -12,7 +12,9 @@ The plain versions repeat the JAX package's algebra: x mod p_i = (lo mod
 p_i) + (hi signed) * (2^32 mod p_i) on the limbs of x, the butterflies of
 K1/K2's plain versions, and ``RingContext._crt_to_pair`` on the Mont64
 twins. The kernels compute the same unique residues by another exact
-route (see the source).
+route (see the source): the register-resident transform of
+``csrc/ntt_regs.cuh``, in the lazy or the strict butterfly form per prime
+(:func:`lazy_butterflies`).
 """
 
 from __future__ import annotations
@@ -23,16 +25,25 @@ import numpy as np
 import torch
 
 from . import check, device_cache, launch, on_cuda
-from .ntt import fwd_stages_plain, inv_all_plain, twiddles
+from .ntt import MAX_N, MIN_N, fwd_stages_plain, inv_all_plain, twiddle_pairs
 from ..mont64 import Mont64Ctx
 from ..u64 import MASK32
 
 _Q, _M_MOD_Q, _HALF_Q, _K, _K_SHOUP, _HALF_DIGITS, _INV, _W = 64, 66, 68, 72, 88, 104, 112, 128
+SMEM_MAX = 227 * 1024  # shared memory a block may take; K8 holds num * N words
 
 
-def wide_consts(ring, num: int, device) -> torch.Tensor:
+def lazy_butterflies(p: int) -> bool:
+    """Whether the kernels run prime p's stages in Harvey's lazy form
+    (values up to 4p in a word), else the strict one: the rule of the
+    Pallas kernels' ``_fwd_stages``/``_inv_stages``."""
+    return 4 * p < 2**32
+
+
+def wide_consts(ring, num: int) -> torch.Tensor:
     """The constant block of K7 and K8 for the first ``num`` primes, 256
-    uint32 slots stored as int32 (``csrc/ntt_wide.cu`` documents it)."""
+    uint32 slots stored as int32 in a CPU tensor, which the kernels take
+    by value (``csrc/ntt_wide.cu`` documents it)."""
 
     def make():
         ps = ring.primes[:num]
@@ -40,8 +51,8 @@ def wide_consts(ring, num: int, device) -> torch.Tensor:
         for i, p in enumerate(ps):
             n_inv, n_inv_shoup = ring._tables[i][2]
             mc = ring.mont[i]
-            c[8 * i: 8 * i + 7] = [p, (1 << 32) // p, (-(1 << 32)) % p, n_inv, n_inv_shoup,
-                                   mc.pinv_neg, mc.r2]
+            c[8 * i: 8 * i + 8] = [p, (1 << 32) // p, (-(1 << 32)) % p, n_inv, n_inv_shoup,
+                                   mc.pinv_neg, mc.r2, lazy_butterflies(p)]
         q = ring.q
 
         def put64(slot, v):
@@ -61,9 +72,9 @@ def wide_consts(ring, num: int, device) -> torch.Tensor:
             for j in range(i):
                 w = math.prod(ps[:j]) % p
                 c[_W + 16 * i + 2 * j: _W + 16 * i + 2 * j + 2] = [w, (w << 32) // p]
-        return torch.from_numpy(c.astype(np.uint32).view(np.int32)).to(device)
+        return torch.from_numpy(c.astype(np.uint32).view(np.int32))
 
-    return device_cache(ring, ("wide_consts", num, str(device)), make)
+    return device_cache(ring, ("wide_consts", num), make)
 
 
 def fwd_wide_all_plain(ring, x: torch.Tensor, num: int) -> torch.Tensor:
@@ -83,6 +94,11 @@ def fwd_wide_all_plain(ring, x: torch.Tensor, num: int) -> torch.Tensor:
 inv_wide_all_plain = inv_all_plain
 
 
+def _check_n(name: str, n: int) -> None:
+    if not MIN_N <= n <= MAX_N:
+        raise ValueError(f"{name}: N={n} outside {MIN_N}..{MAX_N}")
+
+
 def fwd_wide_all(ring, x: torch.Tensor, num: int) -> torch.Tensor:
     """K7: any int64 [rows, N] -> int32 [num, rows, N] NTT images."""
     rows, n = x.shape
@@ -91,21 +107,27 @@ def fwd_wide_all(ring, x: torch.Tensor, num: int) -> torch.Tensor:
         raise ValueError(f"fwd_wide_all: num={num} outside 1..{ring.num_primes}")
     if not on_cuda("fwd_wide_all", x):
         return fwd_wide_all_plain(ring, x, num)
+    _check_n("fwd_wide_all", n)
     out = torch.empty((num, rows, n), dtype=torch.int32, device=x.device)
-    launch("ntt_fwd_wide", "rz_ntt_fwd_wide", x.device, x, out, twiddles(ring, x.device),
-           wide_consts(ring, num, x.device), num, rows, n)
+    launch("ntt_fwd_wide", "rz_ntt_fwd_wide", x.device, x, out, twiddle_pairs(ring, x.device),
+           wide_consts(ring, num), num, rows, n)
     return out
 
 
 def inv_wide_all(ring, xhat: torch.Tensor) -> torch.Tensor:
-    """K8: int32 [num, rows, N] NTT images -> centered int64 [rows, N]."""
+    """K8: int32 [num, rows, N] NTT images, each in [0, p_i) -> centered
+    int64 [rows, N]."""
     num, rows, n = xhat.shape
     check("inv_wide_all", xhat, torch.int32, (num, rows, ring.n))
     if not 1 <= num <= ring.num_primes:
         raise ValueError(f"inv_wide_all: num={num} outside 1..{ring.num_primes}")
     if not on_cuda("inv_wide_all", xhat):
         return inv_wide_all_plain(ring, xhat)
+    _check_n("inv_wide_all", n)
+    if 4 * num * n > SMEM_MAX:
+        raise ValueError(f"inv_wide_all: num={num} planes of N={n} take {4 * num * n} bytes of "
+                         f"shared memory, more than a block's {SMEM_MAX}")
     out = torch.empty((rows, n), dtype=torch.int64, device=xhat.device)
     launch("ntt_inv_wide", "rz_ntt_inv_wide", xhat.device, xhat, out,
-           twiddles(ring, xhat.device), wide_consts(ring, num, xhat.device), num, rows, n)
+           twiddle_pairs(ring, xhat.device), wide_consts(ring, num), num, rows, n)
     return out

@@ -14,23 +14,9 @@ from __future__ import annotations
 
 import torch
 
-from . import check, device_cache, launch, on_cuda
-from .ntt import fwd_all_plain, inv_all_plain, kernel_consts, twiddles
+from . import check, launch, on_cuda
+from .ntt import MAX_N, MIN_N, fwd_all_plain, inv_all_plain, kernel_consts, twiddle_pairs
 from .. import zq
-
-MIN_N, MAX_N = 4, 8192  # a thread holds at least one 16-byte vector of a row
-
-
-def twiddle_pairs(ring, device) -> torch.Tensor:
-    """[primes, 2, N, 2] int32: per prime the forward table (psi_rev, its
-    Shoup companion) and the inverse one (psi_inv_rev, its companion) as
-    (w, w') pairs, the uint2 table ``csrc/ntt_regs.cuh`` reads."""
-
-    def make():
-        tw = twiddles(ring, device)
-        return torch.stack([tw[:, 0:2], tw[:, 2:4]], dim=1).transpose(-1, -2).contiguous()
-
-    return device_cache(ring, ("twiddle_pairs", str(device)), make)
 
 
 def scalar_mul_add_plain(ring, d: torch.Tensor, m: torch.Tensor, t: torch.Tensor,

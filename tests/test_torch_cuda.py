@@ -57,26 +57,43 @@ def test_ntt_kernels_match_plain(cuda, n):
     assert torch.equal(ring.polymul(x, x).cpu(), ring.polymul(x.cpu(), x.cpu()))
 
 
-@pytest.mark.parametrize("n", [16, 512, 4096])
-def test_wide_ntt_kernels_match_plain(cuda, n):
-    """K7 and K8 at q = 2^33+9 (num 1, 2, 3) and the largest prime below
-    2^63 (num 5), K7 also at int64's extremes."""
-    rng = np.random.default_rng(n + 1)
-    for q, nums in ((Q33, (1, 2, 3)), (Q63, (5,))):
+@pytest.mark.parametrize("rows", [1, 37])
+@pytest.mark.parametrize("n", [4, 8, 16, 128, 256, 512, 1024, 4096, 8192])
+def test_wide_ntt_kernels_match_plain(cuda, n, rows):
+    """K7 and K8 at q = 2^33+9 (num 1-3) and the largest prime below 2^63
+    (num 1-5, the fifth prime above 2^30: strict butterflies), at every
+    plan of the register transform (E = 4, 8, 16; one warp; groups of up
+    to 512 threads; at N=8192 and num=5 K8's 160 KB tile), on a row count
+    that is no multiple of a block's groups. K7 also at int64's extremes,
+    K8 also at 0 and p-1 of every prime; K8 inverts K7."""
+    rng = np.random.default_rng(n + rows)
+    for q in (Q33, Q63):
         ring = get_ring(n, q)
-        x = rng.integers(-(q // 2), q // 2 + 1, size=(37, n), dtype=np.int64)
-        x[0, :4] = [q // 2, -(q // 2), 2**63 - 1, -2**63]
+        x = rng.integers(-(q // 2), q // 2 + 1, size=(rows, n), dtype=np.int64)
+        edges = [q // 2, -(q // 2), 2**63 - 1, -2**63, 0, -1]
+        x[0, :min(n, 6)] = edges[:min(n, 6)]
         x = torch.from_numpy(x).to(cuda)
-        for num in nums:
+        for num in range(1, ring.num_primes + 1):
             h = k_wide.fwd_wide_all(ring, x, num)
             assert torch.equal(h, k_wide.fwd_wide_all_plain(ring, x, num)), (q, num)
-            res = torch.stack([torch.from_numpy(rng.integers(0, p, size=(37, n)).astype(np.int32))
-                               for p in ring.primes[:num]]).to(cuda)
+            res = np.stack([rng.integers(0, p, size=(rows, n)) for p in ring.primes[:num]])
+            res[:, -1, : n // 2] = np.array(ring.primes[:num])[:, None] - 1
+            res[:, 0, -1] = 0
+            res = torch.from_numpy(res.astype(np.uint32).view(np.int32)).to(cuda)
             assert torch.equal(k_wide.inv_wide_all(ring, res),
                                k_wide.inv_wide_all_plain(ring, res)), (q, num)
+        back = k_wide.inv_wide_all(ring, h)
+        assert torch.equal(back, k_wide.inv_wide_all_plain(ring, h)), q
+        centered_cols = [j for j in (0, 1, 4, 5) if j < n]  # row 0's values inside (-q/2, q/2)
+        assert torch.equal(back[1:], x[1:]), q
+        assert torch.equal(back[0, centered_cols], x[0, centered_cols]), q
+        # through the ring's entry points, and against the CPU's plain versions
+        # (left out at N=8192, where the CPU's plain product is slow)
         back = ring.inv(ring.fwd(x))
-        assert torch.equal(back[1:], x[1:])
-        assert torch.equal(ring.polymul(x, x).cpu(), ring.polymul(x.cpu(), x.cpu()))
+        assert torch.equal(back[1:], x[1:]), q
+        assert torch.equal(back[0, centered_cols], x[0, centered_cols]), q
+        if n <= 4096:
+            assert torch.equal(ring.polymul(x, x).cpu(), ring.polymul(x.cpu(), x.cpu())), q
 
 
 @pytest.mark.parametrize("n", [16, 512, 4096])

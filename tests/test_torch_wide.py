@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from ringzk_tpu.ops import mont64 as jmont64
+from ringzk_tpu.ops.montgomery import MontCtx as JMontCtx
 from ringzk_tpu.ops import norms as jnorms
 from ringzk_tpu.ops import ntt as jntt
 from ringzk_tpu.ops import sampling as jsampling
@@ -27,6 +28,7 @@ from ringzk_tpu.ops import u64 as ju64
 from ringzk_tpu_torch import Params, interop
 from ringzk_tpu_torch.ops import mont64, norms, sampling, u64
 from ringzk_tpu_torch.ops import ntt as tntt
+from ringzk_tpu_torch.ops.kernels import ntt as tkernels_ntt
 from ringzk_tpu_torch.ops.kernels import ntt_wide as k_wide
 from ringzk_tpu_torch.protocols import commit as commit_mod
 from ringzk_tpu_torch.protocols import linear
@@ -187,6 +189,50 @@ def test_k7_k8_plain_match_pallas_interpret(q):
         want = ntt_kernel.inv_wide_all_pallas(jring, jnp.asarray(xh), interpret=True)
         got = ring.inv(torch.from_numpy(xh.view(np.int32)))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("p", jntt.PRIMES + jntt.EXT_PRIMES)
+def test_butterfly_form_per_prime_follows_jax(p, monkeypatch):
+    """K7/K8 take the lazy butterflies for a prime exactly where the Pallas
+    kernels' _fwd_stages/_inv_stages take _fwd_stages_lazy (4p < 2^32),
+    the strict ones elsewhere; each wide ring's constant block marks its
+    primes so."""
+    from ringzk_tpu.ops.pallas import ntt_kernel
+
+    taken = []
+    for form in ("lazy", "strict"):
+        monkeypatch.setattr(ntt_kernel, f"_fwd_stages_{form}",
+                            lambda *a, form=form: taken.append(("fwd", form)))
+        monkeypatch.setattr(ntt_kernel, f"_inv_stages_{form}",
+                            lambda *a, form=form: taken.append(("inv", form)))
+    ctx = JMontCtx.make(p)
+    ntt_kernel._fwd_stages(ctx, 16, None, None)
+    ntt_kernel._inv_stages(ctx, 16, None, None, None)
+    want = "lazy" if k_wide.lazy_butterflies(p) else "strict"
+    assert taken == [("fwd", want), ("inv", want)]
+    for q in (Q33, Q63):
+        ring = tntt.get_ring(16, q)
+        if p in ring.primes:
+            i = ring.primes.index(p)
+            c = k_wide.wide_consts(ring, ring.num_primes).numpy().view(np.uint32)
+            assert c[8 * i] == p and c[8 * i + 7] == (want == "lazy")
+
+
+@pytest.mark.parametrize("q", QS)
+def test_twiddle_pairs_of_wide_rings_match_jax(q):
+    """The uint2 table K5, K7 and K8 read (ops/kernels/ntt.py
+    twiddle_pairs), at N=16 on a wide ring: per prime the JAX ring's
+    psi_rev and psi_inv_rev, each beside its Shoup companion."""
+    ring = tntt.get_ring(16, q)
+    tw = tkernels_ntt.twiddle_pairs(ring, "cpu").numpy().view(np.uint32)
+    with jax.enable_x64(True):
+        jring = jntt.get_ring(16, q)
+        assert tw.shape == (jring.num_primes, 2, 16, 2)
+        for i, p in enumerate(jring.primes):
+            for which in (0, 1):
+                w = np.asarray(jring._tables[i][which]).astype(np.uint64)
+                np.testing.assert_array_equal(tw[i, which, :, 0], w)
+                np.testing.assert_array_equal(tw[i, which, :, 1], (w << np.uint64(32)) // p)
 
 
 @pytest.mark.parametrize("q", QS)
