@@ -24,7 +24,8 @@ runs K9-K11. Phases, each fatal on failure:
 2. build: compile the kernel library from ``ringzk_tpu_torch/csrc`` (one
    nvcc per source, all at once) and print ptxas's registers, shared
    memory and spills per kernel, with a line per N of the register-resident
-   kernels (K1, K2, K5, K7, K8); K11's SASS must hold its 2 * 64 IMADs;
+   kernels (K1, K2, K5, K7, K8, K9's forward and inverse); K11's SASS must
+   hold its 2 * 64 IMADs;
 3. kernels: K1-K8 at the paths' shapes (K1 and K2 at every shape linear
    and sum launch them, at N=512 and N=1024; K7 also at the int64 extremes;
    K6 at the full batch of each larger-ring path, compared on 8192 of its
@@ -76,7 +77,7 @@ runs K9-K11. Phases, each fatal on failure:
    inverse). K11 is timed again here as the best of 5 windows of 200
    calls; the higher of its multiply-adds/s and the calibration's is the
    calibrated 32-bit rate: the calibrated bound charges each kernel's
-   32-bit multiplies at it (a modular product is MULMOD = 3 of them; adds
+   32-bit multiplies at it (a modular product is three of them; adds
    and selects are left out, so it stays a least time), against its
    bytes.
 
@@ -142,37 +143,50 @@ K4_LARGE = (1024, 4096)
 K12_PATH_SHAPES = tuple((k, n, 3, rows) for n in (N_DEG, 1024)
                         for k, rows in (("K1", B_LINEAR), ("K1", VL * B_SUM),
                                         ("K2", B_LINEAR), ("K2", B_SUM)))
-# the register-resident kernels whose ptxas lines [2] sums up per N
+# the register-resident kernels whose ptxas lines [2] sums up per N (K9's
+# forward and inverse are two kernels)
 REGS_KERNELS = {"K1": "ntt_fwd_kernel", "K2": "ntt_inv_kernel", "K5": "scalar_mul_add_kernel",
-                "K7": "ntt_fwd_wide_kernel", "K8": "ntt_inv_wide_kernel"}
-# Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense int8
-# tensor-core operations/s, and the 32-bit rate outside the tensor cores
-# (67 T/s, given for float32), which bounds the modular integer arithmetic.
-HBM_BPS, INT8_OPS, ALU32_OPS = 3.35e12, 1979e12, 67e12
+                "K7": "ntt_fwd_wide_kernel", "K8": "ntt_inv_wide_kernel",
+                "K9": "ntt_fwd_one_kernel", "K9 (inv)": "ntt_inv_one_kernel"}
+# Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and dense
+# int8 tensor-core operations/s. The 32-bit integer rate, which bounds the
+# modular arithmetic: the CUDA C++ Programming Guide's table of arithmetic
+# instruction throughput gives compute capability 9.0 64 results a clock an
+# SM for a 32-bit integer multiply or multiply-add, and 64 for an add,
+# compare, min/max or select; 132 SMs at the 1.98 GHz that the data sheet's
+# 67 TFLOP/s of float32 (128 fused multiply-adds a clock an SM) implies give
+# 1.673e13/s. The multiplies issue to the FMA-heavy pipe and the adds,
+# compares and selects to the ALU pipe (Nsight Compute's pipe list: the ALU
+# pipe runs integer work except IMAD and IMUL), side by side, and an SM
+# dispatches four warp instructions a clock: so m multiplies and a other
+# operations take max(m, a, (m + a) / 2) / INT32_OPS.
+HBM_BPS, INT8_OPS = 3.35e12, 1979e12
+INT32_OPS = 132 * 64 * 1.98e9
 # 32-bit operations per modular product (Shoup or Montgomery: three
 # multiplies; an input reduction counts as one) and per modular add or sub
-# (add and select); a butterfly is one product, one add, one sub.
-MULMOD, ADDMOD = 3, 2
+# (add and select), as [multiply pipe, ALU pipe]; a butterfly is one
+# product, one add, one sub.
+MULMOD, ADDMOD, MADD = np.array([3, 0]), np.array([0, 2]), np.array([1, 0])
 
 
 class Cost(NamedTuple):
     """What an op bound charges: 32-bit operations per modular product, per
-    modular add, sub or compare, and per 32-bit multiply-add, at ``rate``
-    per second. PEAK charges them all at the data sheet's 32-bit rate, a
-    multiply-add as two operations (as calibrate_vpu.py counts them); the
-    calibrated cost (phase [8]) charges only the multiplies, at K11's
-    measured multiply-adds/s."""
+    modular add, sub or compare, and per 32-bit multiply-add, as [multiply
+    pipe, ALU pipe], at ``rate`` per second and pipe. PEAK charges them all
+    at the integer rate, a multiply-add as one operation; the calibrated
+    cost (phase [8]) charges only the multiplies, at K11's measured
+    multiply-adds/s."""
 
-    mulmod: int
-    addmod: int
-    madd: int
+    mulmod: np.ndarray
+    addmod: np.ndarray
+    madd: np.ndarray
     rate: float
 
 
-PEAK = Cost(MULMOD, ADDMOD, 2, ALU32_OPS)
+PEAK = Cost(MULMOD, ADDMOD, MADD, INT32_OPS)
 
 
-def ntt_ops(n: int, cost: Cost) -> int:
+def ntt_ops(n: int, cost: Cost) -> np.ndarray:
     """32-bit operations of one transform of degree n: n/2 log n butterflies."""
     return n // 2 * (n.bit_length() - 1) * (cost.mulmod + 2 * cost.addmod)
 
@@ -279,14 +293,16 @@ def device_split(fn) -> tuple:
     return wall_ms, *((split, counts) if sum(split.values()) > 0 else ({}, {}))
 
 
-def bound(nbytes: float, ops: float, rate: float) -> tuple:
+def bound(nbytes: float, ops, rate: float) -> tuple:
     """(least ms, what bounds it): bytes at the HBM rate against operations
-    at ``rate``."""
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / rate * 1e3
+    at ``rate``. ``ops`` is a count, or [multiply pipe, ALU pipe] counts of
+    which the two pipes take max(m, a, (m + a) / 2) issue slots."""
+    m, a = np.broadcast_to(np.asarray(ops, dtype=np.float64), (2,))
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, max(m, a, (m + a) / 2) / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def crt_ops(num: int, cost: Cost) -> int:
+def crt_ops(num: int, cost: Cost) -> np.ndarray:
     """32-bit operations of K2's per-coefficient epilogue: N^-1 scaling,
     Garner's digits, the digit compare and the mod-q fold."""
     m, a = cost.mulmod, cost.addmod
@@ -304,7 +320,7 @@ def k2_bound(rows: int, num: int, n: int, cost: Cost = PEAK) -> tuple:
                  rows * (num * ntt_ops(n, cost) + n * crt_ops(num, cost)), cost.rate)
 
 
-def wide_crt_ops(num: int, cost: Cost) -> int:
+def wide_crt_ops(num: int, cost: Cost) -> np.ndarray:
     """32-bit operations of K8's per-coefficient epilogue: N^-1 scaling,
     Garner's digits (num(num-1)/2 products and subtractions, num-1 inverse
     products), the digit compare, the 64-bit fold (a 64-bit Shoup product
@@ -359,26 +375,6 @@ def k10_bound(rows: int, n: int) -> tuple:
 def k11_bound(elements: int, chain: int, cost: Cost = PEAK) -> tuple:
     """4 bytes in and out an element; 2 * chain multiply-adds."""
     return bound(8 * elements, elements * 2 * chain * cost.madd, cost.rate)
-
-
-def ptxas_summary(log: str) -> list:
-    """(kernel, N, NUM or None, registers, spill store bytes, spill load
-    bytes) per instance of the register-resident kernels in nvcc's -Xptxas
-    -v report: the instances are templates on log2(N) (and K5's prime
-    count), named in their mangled names."""
-    rows, entry, spill = [], None, (0, 0)
-    for line in log.splitlines():
-        if m := re.search(r"Compiling entry function '([^']+)'", line):
-            entry = next(([k, *(int(a) for a in re.findall(r"Li(\d+)E", t.group(1)))]
-                          for k, sub in REGS_KERNELS.items()
-                          if (t := re.search(rf"\d{sub}I((?:Li\d+E)+)E", m.group(1)))), None)
-        elif entry and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            spill = tuple(int(v) for v in m.groups())
-        elif entry and (m := re.search(r"Used (\d+) registers", line)):
-            kind, log_n, *num = entry
-            rows.append((kind, 1 << log_n, num[0] if num else None, int(m.group(1)), *spill))
-            entry = None
-    return rows
 
 
 def launched(counts: dict, k: str) -> int:
@@ -519,13 +515,9 @@ def main() -> int:
     for line in path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line or "Used" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
-    summary = sorted(ptxas_summary(path.with_suffix(".log").read_text()),
-                     key=lambda r: (int(r[0][1:]), r[2] or 0, r[1]))
-    for kk, num in dict.fromkeys((r[0], r[2]) for r in summary):
-        print(f"[2] ptxas {kk} {REGS_KERNELS[kk]}" + (f" num={num}" if num else "")
-              + ": registers (spill store/load bytes) " + ", ".join(
-                  f"N={n} {regs} ({st}/{ld})" for k, n, m, regs, st, ld in summary
-                  if (k, m) == (kk, num)), flush=True)
+    summary = _lib.ptxas_summary(path.with_suffix(".log").read_text(), REGS_KERNELS)
+    for line in _lib.ptxas_lines(summary, REGS_KERNELS):
+        print(f"[2] ptxas {line}", flush=True)
     if set(REGS_KERNELS) - {r[0] for r in summary}:
         fail(f"ptxas reported no instances of {set(REGS_KERNELS) - {r[0] for r in summary}}")
     imads, other = sass_imads(path, _lib._nvcc(), "mac_chain_kernel")
@@ -1046,13 +1038,12 @@ def main() -> int:
     # than its calibrated bound
     k11_ms = min(cuda_ms(lambda: k_mac.mac_chain(x11), reps=200) for _ in range(5))
     k11_madd = x11.numel() * 2 * k_mac.CHAIN / (k11_ms / 1e3)
-    calibrated = Cost(MULMOD, 0, 1, max(cal["k11_madd_per_s"], k11_madd))
+    calibrated = Cost(MULMOD, 0 * ADDMOD, MADD, max(cal["k11_madd_per_s"], k11_madd))
     print(f"[8] calibrated 32-bit rate: {calibrated.rate:.4e} multiply-adds/s, the higher of "
           f"the calibration's {cal['k11_madd_per_s']:.4e} and {k11_madd:.4e} here (K11 "
           f"{k11_ms:.4f} ms a call, best of 5 windows of 200); "
-          f"{2 * calibrated.rate:.4e} ops/s counted as calibrate_vpu.py counts them, "
-          f"{2 * calibrated.rate / ALU32_OPS:.1%} of the {ALU32_OPS / 1e12:.0f} T/s float32 "
-          f"figure, on {smi}", flush=True)
+          f"{calibrated.rate / INT32_OPS:.1%} of the {INT32_OPS:.4e}/s integer rate, on {smi}",
+          flush=True)
 
     for k in COUNTERS:
         for counter in COUNTERS[k]:

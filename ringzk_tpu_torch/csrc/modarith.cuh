@@ -38,7 +38,9 @@ __device__ __forceinline__ uint32_t add_mod31(uint32_t a, uint32_t b, uint32_t p
   return s >= p ? s - p : s;
 }
 
-// (a - b) mod p for a, b in [0, p).
+// (a - b) mod p for a, b in [0, p). For any uint32 a and b it is
+// MontCtx.sub's value (a - b, plus p where a < b, wrapping), which the
+// strict butterflies (ntt_regs.cuh kStrict) rely on for K9.
 __device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t p) {
   return a >= b ? a - b : a + (p - b);
 }

@@ -1,7 +1,8 @@
 // A negacyclic NTT whose plane lives in registers, for K1/K2 (ntt.cu), K5
-// (scalar_mul_add.cu) and K7/K8 (ntt_wide.cu), with the group helpers they
-// share: a group's size, the vectors of its first and last layouts, the
-// checked shared-memory request and the dispatch over N = 4..8192.
+// (scalar_mul_add.cu), K7/K8 (ntt_wide.cu) and K9 (ntt_one.cu), with the
+// group helpers they share: a group's size, the vectors of its first and
+// last layouts, the checked shared-memory request and the dispatch over
+// N = 4..8192.
 //
 // A plane of N = 2^L coefficients is held by VT = 2^(L-LE) threads (a
 // "group": one warp at N = 512, VT/32 warps above, and below N = 128 one
@@ -27,20 +28,27 @@
 // by the bits above them (a linear map found at compile time) so that no
 // layout's loads or stores meet a bank conflict.
 //
-// Two butterfly forms, chosen per prime by the rule of
-// ringzk_tpu/ops/pallas/ntt_kernel.py _fwd_stages / _inv_stages:
+// Two butterfly forms. K1, K2, K5, K7 and K8 choose one per prime by the
+// rule of ringzk_tpu/ops/pallas/ntt_kernel.py _fwd_stages /
+// _inv_stages; K9 (ntt_one.cu) takes the strict form at every prime:
 //   lazy (kStrict = false), for 4p < 2^32 (p < 2^30: the three base CRT
 //     primes and 469762049): Harvey's forms, as _fwd_stages_lazy /
 //     _inv_stages_lazy; forward values stay in [0, 4p), inverse values in
-//     [0, 2p);
-//   strict (kStrict = true), for 2^30 <= p < 2^31 (the wide rings'
-//     extension primes 2013265921, 2130706433, 1811939329, 2113929217,
-//     where 4p no longer fits a word): every add, subtract and Shoup
-//     product reduced to [0, p), as _fwd_stages_strict / _inv_stages_strict;
-//     2p < 2^32, so no value leaves uint32.
-// The caller reduces strictly afterwards (a Montgomery product, the Shoup
-// product by N^-1, or two conditional subtracts), so the residues equal
-// those of the strict stages bit for bit for inputs in [0, p).
+//     [0, 2p). The caller reduces strictly afterwards (a Montgomery
+//     product, the Shoup product by N^-1, or two conditional subtracts),
+//     so the residues equal those of the strict stages bit for bit for
+//     inputs in [0, p);
+//   strict (kStrict = true), any p < 2^31 (the wide rings' extension
+//     primes 2013265921, 2130706433, 1811939329, 2113929217 lie at or
+//     above 2^30, where 4p no longer fits a word): every add, subtract and
+//     Shoup product reduced to [0, p), as _fwd_stages_strict /
+//     _inv_stages_strict; 2p < 2^32, so no value leaves uint32. Its add,
+//     subtract and Shoup products are MontCtx's (ringzk_tpu/ops/
+//     montgomery.py) on every uint32, the subtract rz::sub_mod (the wrapped
+//     difference, plus p where a < b), so a plane outside [0, p), which K9
+//     takes as given, wraps as ringzk_tpu/ops/ntt.py _fwd_one / _inv_one
+//     wrap it. A subtract as min(d, d + p) would differ there (a = 2^32 - 1,
+//     b = 0 gives p - 1, not 2^32 - 1).
 //
 // Twiddles `tw`: per prime [2][N] of uint2 (w, floor(w 2^32 / p)), psi_rev
 // then psi_inv_rev (ops/kernels/ntt.py twiddle_pairs). Forward
@@ -211,19 +219,18 @@ __device__ __forceinline__ void pass_stages(uint32_t (&x)[Plan<L>::E],
       const int e1 = e0 | 1 << rb;
       const uint2 w = __ldg(twb + (deposit(e0, R) >> (b + 1)));
       if constexpr (kStrict) {
-        // [0, p) in and out; min(v, v - p) reduces v < 2p, min(d, d + p) a
-        // wrapped difference
+        // [0, p) in and out (any uint32 in: MontCtx's values); min(v,
+        // v - p) reduces v < 2p, sub_mod is MontCtx.sub
         const uint32_t x0 = x[e0], x1 = x[e1];
         if (!kInverse) {
           uint32_t pr = w.x * x1 - __umulhi(w.y, x1) * prime;
           pr = min(pr, pr - prime);
-          const uint32_t s0 = x0 + pr, df = x0 - pr;
+          const uint32_t s0 = x0 + pr;
           x[e0] = min(s0, s0 - prime);
-          x[e1] = min(df, df + prime);
+          x[e1] = sub_mod(x0, pr, prime);
         } else {
           const uint32_t s0 = x0 + x1;
-          uint32_t df = x0 - x1;
-          df = min(df, df + prime);
+          const uint32_t df = sub_mod(x0, x1, prime);
           const uint32_t pr = w.x * df - __umulhi(w.y, df) * prime;
           x[e0] = min(s0, s0 - prime);
           x[e1] = min(pr, pr - prime);
@@ -247,7 +254,7 @@ __device__ __forceinline__ void pass_stages(uint32_t (&x)[Plan<L>::E],
 
 // Forward transform from pass p on: x in pass 0's layout -> the NTT image
 // in the last pass's layout. Lazy: values in [0, 4p) in and out; strict:
-// [0, p).
+// [0, p) (any uint32 in).
 template <int L, int GT, bool kStrict = false, int p = 0>
 __device__ __forceinline__ void fwd(uint32_t (&x)[Plan<L>::E], uint32_t* buf,
                                     const uint2* __restrict__ tw, uint32_t vt, bool writer,
@@ -261,7 +268,7 @@ __device__ __forceinline__ void fwd(uint32_t (&x)[Plan<L>::E], uint32_t* buf,
 
 // Inverse transform without the N^-1 scaling, from pass p down: x in the
 // last pass's layout -> pass 0's layout. Lazy: values in [0, 2p) in and
-// out; strict: [0, p). `tw` is the inverse table.
+// out; strict: [0, p) (any uint32 in). `tw` is the inverse table.
 template <int L, int GT, bool kStrict = false, int p = Plan<L>::kPasses - 1>
 __device__ __forceinline__ void inv(uint32_t (&x)[Plan<L>::E], uint32_t* buf,
                                     const uint2* __restrict__ tw, uint32_t vt, bool writer,

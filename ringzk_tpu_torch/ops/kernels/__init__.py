@@ -52,12 +52,24 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
         )
 
 
+def check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor's data starts on a 16-byte boundary: the
+    kernels read and write their rows as 16-byte vectors, and a misaligned
+    one would fault on the card (a fault that ends the CUDA context)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: a {t.dtype} {tuple(t.shape)} argument starts "
+                             f"{t.data_ptr() % 16} bytes past a 16-byte boundary "
+                             f"(storage offset {t.storage_offset()}); pass a fresh copy")
+
+
 def launch(name: str, fn: str, device: torch.device, *args) -> None:
     """Call C entry point ``fn`` on ``device``'s current stream; raise on a
-    launch error, count the launch otherwise. Tensor arguments pass as
-    pointers, ints as ints."""
+    launch error or a misaligned tensor, count the launch otherwise. Tensor
+    arguments pass as pointers, ints as ints."""
     from ._lib import lib
 
+    check_aligned(name, *(a for a in args if isinstance(a, torch.Tensor) and a.is_cuda))
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -104,3 +105,35 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _loaded = handle
     return _loaded
+
+
+def ptxas_summary(log: str, kernels: dict) -> list:
+    """(kernel, N, NUM or None, registers, spill store bytes, spill load
+    bytes) per instance of the register-resident kernels in nvcc's -Xptxas
+    -v report, sorted by ``kernels``' order, NUM and N. ``kernels`` maps a
+    label to a kernel's name; its instances are templates on log2(N) (and
+    K5's prime count), named in their mangled names."""
+    rows, entry, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entry = next(([k, *(int(a) for a in re.findall(r"Li(\d+)E", t.group(1)))]
+                          for k, sub in kernels.items()
+                          if (t := re.search(rf"\d{sub}I((?:Li\d+E)+)E", m.group(1)))), None)
+            spill = (0, 0)
+        elif entry and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            spill = tuple(int(v) for v in m.groups())
+        elif entry and (m := re.search(r"Used (\d+) registers", line)):
+            kind, log_n, *num = entry
+            rows.append((kind, 1 << log_n, num[0] if num else None, int(m.group(1)), *spill))
+            entry = None
+    return sorted(rows, key=lambda r: (list(kernels).index(r[0]), r[2] or 0, r[1]))
+
+
+def ptxas_lines(summary: list, kernels: dict) -> list:
+    """One line per kernel (and NUM) of a :func:`ptxas_summary`: its
+    registers and spills per N."""
+    return [f"{kk} {kernels[kk]}" + (f" num={num}" if num else "")
+            + ": registers (spill store/load bytes) " + ", ".join(
+                f"N={n} {regs} ({st}/{ld})" for k, n, m, regs, st, ld in summary
+                if (k, m) == (kk, num))
+            for kk, num in dict.fromkeys((r[0], r[2]) for r in summary)]

@@ -3,11 +3,13 @@
 ``fwd_one``: uint32 [rows, N] (int32 bits) -> the image at prime i of the
 ring's primes, bit-reversed order (counterpart of ``fwd_one_pallas``, the
 function of the JAX package's ``ntt._fwd_one``). ``inv_one``: the inverse
-with the N^-1 scaling, [0, p) out and no CRT (``inv_one_pallas``,
-``ntt._inv_one``). The input is taken as given, with no reduction.
+with the N^-1 scaling and no CRT (``inv_one_pallas``, ``ntt._inv_one``).
+The input is taken as given, with no reduction: residues in [0, p) give
+the unique residues, other values wrap as MontCtx's add and sub wrap them.
 
 The plain versions are K1/K2's plain stage loops at prime i
-(:func:`fwd_stages_one`, :func:`inv_stages_one`) without the CRT.
+(:func:`fwd_stages_one`, :func:`inv_stages_one`) without the CRT. The
+kernel runs the register-resident transform in its wrap butterfly form.
 """
 
 from __future__ import annotations
@@ -16,23 +18,21 @@ import numpy as np
 import torch
 
 from . import check, device_cache, launch, on_cuda
-from .ntt import fwd_stages_one, inv_stages_one, twiddles
+from .ntt import check_n, fwd_stages_one, inv_stages_one, twiddle_pairs, twiddles
 from ..u64 import narrow, widen
 
 
-def one_consts(ring, i: int, device) -> torch.Tensor:
-    """Prime i's 8-slot constant block, laid out as one prime's slot of
-    ``csrc/crt_narrow.cuh``'s block: p, floor(2^32/p), (-2^32) mod p,
-    N^-1 mod p, its Shoup companion, -p^-1 mod 2^32, 2^64 mod p, 0."""
+def one_consts(ring, i: int) -> torch.Tensor:
+    """Prime i's constants on the CPU, which the kernel takes by value
+    (``csrc/ntt_one.cu`` ``OneConsts``): p, N^-1 mod p, its Shoup
+    companion."""
 
     def make():
-        p, mc = ring.primes[i], ring.mont[i]
         n_inv, n_inv_shoup = ring._tables[i][2]
-        c = np.array([p, (1 << 32) // p, (-(1 << 32)) % p, n_inv, n_inv_shoup, mc.pinv_neg,
-                      mc.r2, 0], np.uint64)
-        return torch.from_numpy(c.astype(np.uint32).view(np.int32)).to(device)
+        c = np.array([ring.primes[i], n_inv, n_inv_shoup], np.uint64)
+        return torch.from_numpy(c.astype(np.uint32).view(np.int32))
 
-    return device_cache(ring, ("one_consts", i, str(device)), make)
+    return device_cache(ring, ("one_consts", i), make)
 
 
 def fwd_one_plain(ring, i: int, x: torch.Tensor) -> torch.Tensor:
@@ -56,9 +56,10 @@ def _run(counter: str, fn: str, plain, ring, i: int, x: torch.Tensor) -> torch.T
         raise ValueError(f"{counter}: prime index {i} outside 0..{ring.num_primes - 1}")
     if not on_cuda(counter, x):
         return plain(ring, i, x)
+    check_n(counter, n)
     out = torch.empty_like(x)
-    launch(counter, fn, x.device, x, out, twiddles(ring, x.device)[i],
-           one_consts(ring, i, x.device), rows, n)
+    launch(counter, fn, x.device, x, out, twiddle_pairs(ring, x.device)[i], one_consts(ring, i),
+           rows, n)
     return out
 
 

@@ -27,6 +27,7 @@ from ringzk_tpu_torch.protocols import commit as commit_mod
 from ringzk_tpu_torch.protocols import linear
 from ringzk_tpu_torch.protocols import open as open_mod
 from ringzk_tpu_torch.protocols import sum as sum_mod
+from ntt_wrap_rows import wrap_rows
 
 pytestmark = pytest.mark.cuda
 Q = 3_515_337_053
@@ -116,25 +117,35 @@ def test_wide_ntt_kernels_match_plain(cuda, n, rows):
             assert torch.equal(ring.polymul(x, x).cpu(), ring.polymul(x.cpu(), x.cpu())), q
 
 
-@pytest.mark.parametrize("n", [16, 512, 4096])
-def test_ntt_one_kernel_matches_plain(cuda, n):
-    """K9 forward and inverse at every prime of the default ring and both
-    extension primes of q = 2^63 - 25, on residues and on any uint32, over
-    a ragged 37 rows; fwd of residues is plane i of K1's images."""
-    rng = np.random.default_rng(n + 3)
-    ring, ring63 = get_ring(n, Q), get_ring(n, Q63)
-    for r, i in [(ring, 0), (ring, 1), (ring, 2), (ring63, 3), (ring63, 4)]:
-        p = r.primes[i]
-        for hi in (p, 2**32):
-            x = torch.from_numpy(rng.integers(0, hi, size=(37, n), dtype=np.uint64)
-                                 .astype(np.uint32).view(np.int32)).to(cuda)
-            h = k_one.fwd_one(r, i, x)
-            assert torch.equal(h, k_one.fwd_one_plain(r, i, x)), (p, hi)
-            assert torch.equal(k_one.inv_one(r, i, x), k_one.inv_one_plain(r, i, x)), (p, hi)
-            if hi == p:
-                assert torch.equal(k_one.inv_one(r, i, h), x)
-                if r is ring:
-                    assert torch.equal(h, k_ntt.fwd_all(ring, x, 3)[i])
+@pytest.mark.parametrize("rows", [1, 37])
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192])
+def test_ntt_one_kernel_matches_plain(cuda, n, rows):
+    """K9 forward and inverse at every prime of q = 3515337053, 32749,
+    2^32 - 5, 2^33 + 9 and 2^63 - 25 (whose extension primes 469762049 and
+    2013265921, the latter at or above 2^30), at every plan of the register
+    transform, on residues, on any uint32 and on rows crafted to reach the
+    wrap of MontCtx.sub (tests/ntt_wrap_rows.py); on residues inv_one
+    inverts fwd_one, and on the narrow rings fwd_one is plane i of K1's
+    images."""
+    rng = np.random.default_rng(n + rows)
+    for q in (Q, 32749, 2**32 - 5, Q33, Q63):
+        ring = get_ring(n, q)
+        for i, p in enumerate(ring.primes):
+            for kind in ("residues", "any-uint32", "wrap"):
+                if kind == "wrap":
+                    x = wrap_rows(rows, n, p, rng)
+                else:
+                    hi = p if kind == "residues" else 2**32
+                    x = rng.integers(0, hi, size=(rows, n), dtype=np.uint64).astype(np.uint32)
+                x = torch.from_numpy(x.view(np.int32)).to(cuda)
+                h = k_one.fwd_one(ring, i, x)
+                assert torch.equal(h, k_one.fwd_one_plain(ring, i, x)), (q, i, kind)
+                assert torch.equal(k_one.inv_one(ring, i, x),
+                                   k_one.inv_one_plain(ring, i, x)), (q, i, kind)
+                if kind == "residues":
+                    assert torch.equal(k_one.inv_one(ring, i, h), x), (q, i)
+                    if q < 2**32:
+                        assert torch.equal(h, k_ntt.fwd_all(ring, x, 3)[i]), (q, i)
 
 
 @pytest.mark.parametrize("n", [32, 64, 128, 256, 512, 1024])

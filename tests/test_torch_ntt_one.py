@@ -4,9 +4,12 @@ The port's ``ntt.fwd_one``/``inv_one`` run K9's plain version on CPU
 tensors; they must equal the JAX package's ``ntt._fwd_one``/``_inv_one``
 and its Pallas kernels ``fwd_one_pallas``/``inv_one_pallas`` (interpret
 mode) bit for bit, on residues in [0, p) and on any uint32 bit pattern
-(taken as given, where the strict butterflies wrap). Integers: the
-tolerance is zero.
+(taken as given, where the strict butterflies wrap), and on rows crafted
+to reach that wrap (tests/ntt_wrap_rows.py). Integers: the tolerance is
+zero.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +20,10 @@ import torch
 from ringzk_tpu.ops import ntt as jntt
 from ringzk_tpu.ops.pallas import ntt_kernel
 from ringzk_tpu_torch.ops import ntt as tntt
+from ringzk_tpu_torch.ops.kernels import check_aligned
 from ringzk_tpu_torch.ops.kernels import ntt_one as k_one
+from ringzk_tpu_torch.ops.kernels.ntt import twiddles
+from ntt_wrap_rows import wrap_rows
 
 torch.set_num_threads(2)
 Q = 3_515_337_053
@@ -101,3 +107,54 @@ def test_wrapper_checks_input():
         k_one.inv_one(ring, 3, torch.zeros((2, 16), dtype=torch.int32))
     with pytest.raises(ValueError):
         k_one.fwd_one(ring, 0, torch.zeros((2, 8), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 4])
+def test_check_aligned(offset):
+    """A launch raises for a tensor whose data does not start on a 16-byte
+    boundary (the kernels move 16-byte vectors), before the card sees it."""
+    x = torch.zeros(64, dtype=torch.int32)[offset:]
+    if offset % 4:
+        with pytest.raises(ValueError, match="16-byte"):
+            check_aligned("ntt_fwd_one", torch.zeros(4, dtype=torch.int32), x)
+    else:
+        check_aligned("ntt_fwd_one", torch.zeros(4, dtype=torch.int32), x)
+
+
+def first_stage_differs(x: np.ndarray, p: int, w: int, ws: int) -> tuple:
+    """Whether a difference taken as min(d, d + p) differs from MontCtx.sub
+    on some first-stage pair of the forward (lane j with j + N/2, the
+    difference x[j] - w x[j + N/2] after the Shoup product by the stage's
+    twiddle w) and of the inverse (lane 2k with 2k + 1), in uint64 numpy."""
+    m = 2**32
+    x = x.astype(np.uint64)
+    h = x.shape[-1] // 2
+
+    def differs(a, b):
+        d = (a - b) % m
+        mont_sub = np.where(a < b, (d + p) % m, d)
+        return bool((np.minimum(d, (d + p) % m) != mont_sub).any())
+
+    hi = x[..., h:]
+    pr = (w * hi - ((ws * hi) >> np.uint64(32)) * p) % m
+    pr = np.where(pr >= p, pr - p, pr)
+    return differs(x[..., :h], pr), differs(x[..., 0::2], x[..., 1::2])
+
+
+@pytest.mark.parametrize("n", [4, 16, 128])
+@pytest.mark.parametrize("q, i", [(Q, 0), (Q, 1), (Q, 2), (Q63, 3), (Q63, 4)])
+def test_wrap_rows_match_jax(n, q, i):
+    """The crafted wrap rows through the port's plain versions equal JAX's
+    _fwd_one/_inv_one and its Pallas kernels (interpret) bit for bit, at
+    the base primes and a wide ring's extension primes (2013265921 at or
+    above 2^30). Their first-stage pairs reach values where min(d, d + p)
+    differs from MontCtx.sub, forward and inverse, so K9's card test on
+    the same rows holds the strict butterflies' subtract to MontCtx's."""
+    rng = np.random.default_rng(1000 * n + 10 * i + (q == Q63))
+    tring = tntt.get_ring(n, q)
+    p = tring.primes[i]
+    x = wrap_rows(3, n, p, rng)
+    tw = twiddles(tring, "cpu")[i].numpy().view(np.uint32)
+    assert first_stage_differs(x, p, int(tw[0, 1]), int(tw[1, 1])) == (True, True)
+    with jax.enable_x64(True) if q == Q63 else contextlib.nullcontext():
+        both_ways(jntt.get_ring(n, q), tring, i, x)
