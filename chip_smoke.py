@@ -58,9 +58,11 @@ opening and the RZK1 wire format. Phases, each fatal on failure:
 7. timing, with CUDA events after a warm-up, per path: the round trip
    (median of 5 calls), each phase (median of 5), one round trip under
    ``torch.profiler`` (after a warm-up call) for the device time by kind
-   (K1-K8, other device work) and the idle share, the latter only when
-   the profiler recorded every launch the counters saw, and one round trip
-   for the peak device memory;
+   (K1-K8, other device work: kernels and memory operations, not the
+   phase ranges' spans on the device timeline) and the idle share, the
+   latter only when the profiler recorded every launch the counters saw,
+   with the device time under each phase range, and one round trip for the
+   peak device memory;
    then K5 at each of its shapes (the five N=512 ones, and open's response
    and verify at N=1024 and N=4096) against its plain version and against
    the composed route it replaced (K1, dot_hat, K2 and the centered add),
@@ -135,7 +137,22 @@ opening and the RZK1 wire format. Phases, each fatal on failure:
    no measure of an exchange between cards); (c) K9 with each rank's table at
    [6144, 4096] and [6144, 2048] (N=8192 over sp = 2 and 4), every rank
    and prime, held against the plain ``_local_stage`` network and against
-   K9's plain version on the same table, timed beside both and its bound.
+   K9's plain version on the same table, timed beside both and its bound;
+12. the last modules (``last_modules``): (a) the native RZK1 row codec
+   (``ringzk_tpu_torch/runtime/codec.cpp``, built by the host compiler):
+   open's response and response context at B=131072 through ``dumps``,
+   ``loads`` and ``rebuild``, exact, on the threaded encoder; the native
+   bytes and arrays equal to the plain numpy codec's at B=8192; host ms of
+   both; each payload of MALFORMED rejected alike by both decoders, those
+   past 32 bits as corrupt; (b) ``utils/benchtime.timed_row`` of open's
+   round trip at B=131072 beside [7]'s CUDA-event median, with its windows,
+   its fetch-forced window and ``engine_fingerprint()``; (c) the device ms
+   under each phase range of the JAX package's names (``utils/profiling``)
+   in [7]'s profiled open, linear and sum round trips at N=512, each of
+   which must record every range it passes through, in [11]'s profiled
+   open pair at N=8192 (sp path and unsharded) and in one keygen; (d)
+   ``examples_torch/custom_modulus.py`` and ``two_party.py`` as
+   subprocesses on the card, each exiting 0.
    Then the script's own wall time.
 
 The last line is a JSON object {"ok": true, "device": {...}}; the line
@@ -147,6 +164,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -223,6 +241,19 @@ B_SP = {"open": 2048, "linear": 1024, "sum": 256}
 B_SP_GLOO = 8
 SP_GLOO = ((1, 2), (1, 4), (2, 2))
 K9_SP_ROWS = 3 * B_SP["open"]
+# phase [12]: malformed compact rows, each read as shape (1, 4): a u32 count
+# of the coefficients kept, then zigzag varints. The first two pass 32 bits
+# on their fifth byte, which the JAX package's native decoder wraps
+# (ROADMAP.md, "Reference faults the port must not copy").
+MALFORMED = (
+    ("5-byte varint, fifth byte 0x7F", b"\x01\0\0\0\xff\xff\xff\xff\x7f"),
+    ("5-byte varint, fifth byte 0x10", b"\x01\0\0\0\x80\x80\x80\x80\x10"),
+    ("6-byte varint", b"\x01\0\0\0" + b"\xff" * 5 + b"\x01"),
+    ("kept > row_len", b"\x05\0\0\0" + b"\x02" * 5),
+    ("truncated header", b"\x01\0"),
+    ("truncated varint", b"\x02\0\0\0\x02\xff"),
+    ("trailing bytes", b"\x02\0\0\0\x02\x05\xff\x00\x07"),
+)
 # the register-resident kernels whose ptxas lines [2] sums up per N (K9's
 # forward and inverse are two kernels)
 REGS_KERNELS = {"K1": "ntt_fwd_kernel", "K2": "ntt_inv_kernel", "K5": "scalar_mul_add_kernel",
@@ -358,15 +389,33 @@ def phase_ms(phases: Callable, calls: int) -> dict:
     return {name: col[len(col) // 2] for name, col in zip(names, cols)}
 
 
-def device_split(fn) -> tuple:
+class Profiled(NamedTuple):
+    """One call profiled by :func:`device_split`: its host wall ms, device
+    ms and kernel events by kind, and with ``ranges`` the device ms of the
+    work whose innermost phase range each range is
+    (``profiling.device_ranges``) and the range each range ran in
+    (``profiling.range_parents``)."""
+
+    wall_ms: float
+    split: dict
+    counts: dict
+    ranges: dict
+    parents: dict
+
+
+def device_split(fn, ranges: bool = False) -> Profiled:
     """Run fn twice under torch.profiler (host and device activity), with a
     spin kernel between the calls. The first call takes the profiler's
     start-up, whose first kernels can go unrecorded; only the kernels after
-    the spin on the device timeline count. Returns (wall ms of the second
-    call, {kind: device ms}, {kind: kernel events recorded}) with kinds
-    K1-K8 and "other"; the dicts are empty when the profiler recorded no
-    device time after the spin."""
+    the spin on the device timeline count. Device time is that of kernels
+    and memory operations (``profiling.device_work``): the spans the phase
+    ranges leave on the device timeline (gpu_user_annotation) overlap them
+    and are left out. The split and counts have kinds K1-K8 and "other";
+    they are empty when the profiler recorded no device time after the
+    spin."""
     from torch.profiler import ProfilerActivity, profile
+
+    from ringzk_tpu_torch.utils import profiling
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -377,7 +426,8 @@ def device_split(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    device = profiling.device_work(events)
     spins = [e.time_range.end for e in device if "spin_kernel" in e.name]
     split = dict.fromkeys([*KERNEL_NAMES, "other"], 0.0)
     counts = dict.fromkeys(split, 0)
@@ -387,7 +437,35 @@ def device_split(fn) -> tuple:
         kind = next((k for k, sub in KERNEL_NAMES.items() if sub in e.name), "other")
         split[kind] += e.time_range.elapsed_us() / 1e3
         counts[kind] += 1
-    return wall_ms, *((split, counts) if sum(split.values()) > 0 else ({}, {}))
+    by_range, parents = {}, {}
+    if ranges and spins:
+        by_range = profiling.device_ranges(events, since_us=max(spins))
+        parents = profiling.range_parents(events)
+    return Profiled(wall_ms, *((split, counts) if sum(split.values()) > 0 else ({}, {})),
+                    by_range, parents)
+
+
+def range_report(label: str, prof: Profiled, smi: str) -> dict:
+    """Print the device ms under each phase range of a profiled call: its
+    own work, and with the ranges nested in it; and the share of the call's
+    device time the ranges hold. Returns {range: (own ms, with nested)}."""
+    def nested(name):
+        return prof.ranges.get(name, 0.0) + sum(nested(c) for c, up in prof.parents.items()
+                                                if up == name)
+
+    dev_ms = sum(prof.split.values())
+    if not prof.ranges or not dev_ms:
+        print(f"  {label}: the profiler recorded no device time under a range; not measured",
+              flush=True)
+        return {}
+    rows = {name: (prof.ranges.get(name, 0.0), nested(name)) for name in prof.parents}
+    held = sum(prof.ranges.values())
+    print(f"  {label}: device ms by phase range, own work [with the ranges nested in it]: "
+          + ", ".join(f"{name} {own:.3f}" + (f" [{tot:.3f}]" if tot != own else "")
+                      for name, (own, tot) in rows.items())
+          + f"; the ranges hold {held:.3f} of the call's {dev_ms:.3f} ms device time "
+          f"({held / dev_ms:.1%}) on {smi}", flush=True)
+    return rows
 
 
 def bound(nbytes: float, ops, rate: float) -> tuple:
@@ -795,7 +873,7 @@ def user_surface(dev: torch.device, smi: str) -> None:
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated(dev) - before
             rows[chains] = (ms, batch / ms * 1e3, peak)
-            wall_ms, split, _ = device_split(rt_call)
+            wall_ms, split = device_split(rt_call)[:2]
             idle = (f"device time {sum(split.values()):.3f} ms against a host wall of "
                     f"{wall_ms:.3f} ms (idle share {max(0.0, 1 - sum(split.values()) / wall_ms):.2%}"
                     f"; K1-K8 {sum(v for k, v in split.items() if k != 'other'):.3f} ms)"
@@ -1440,8 +1518,9 @@ def sp_phase(dev: torch.device, smi: str) -> tuple:
     rank's table at [K9_SP_ROWS, N_loc] for N_loc = 4096 and 2048, held
     against the plain ``_local_stage`` network and against K9's plain
     version on the same table, timed beside both and its bound. Returns the
-    launch counts of each path it drove, K9's ms at the sp shapes and the
-    largest error of K4 and K9 against their plain versions."""
+    launch counts of each path it drove, K9's ms at the sp shapes, the
+    largest error of K4 and K9 against their plain versions, and the
+    profiled calls of open's pair with their phase ranges ([12])."""
     import tempfile
 
     import torch.distributed as dist
@@ -1464,6 +1543,7 @@ def sp_phase(dev: torch.device, smi: str) -> tuple:
     gen = torch.Generator(device=dev).manual_seed(60)
     sp_kernels, off_path = ("K4", "K9"), ("K1", "K2", "K3", "K5", "K6")
     rec, errs = sp_recorder(), {}
+    profiled = {}   # the open pair's profiled calls, for phase [12]
 
     def centered(shape):
         return sampling.uniform_centered(gen, shape[:-1], shape[-1], params.q, dev)
@@ -1543,7 +1623,10 @@ def sp_phase(dev: torch.device, smi: str) -> tuple:
                   f"{launches[label]} on {smi}",
                   flush=True)
             for name, fn in (("sp path", sp_call), ("unsharded round trip", one_call)):
-                wall_ms, split, _ = device_split(fn)
+                prof = device_split(fn, ranges=proto == "open")
+                wall_ms, split = prof.wall_ms, prof.split
+                if proto == "open":
+                    profiled[name] = prof
                 if not split:
                     print(f"  {label} {name} profiled: the profiler recorded no device time; "
                           "device split not measured", flush=True)
@@ -1663,7 +1746,183 @@ def sp_phase(dev: torch.device, smi: str) -> tuple:
         print(f"[11] K9 launches, {lb}: {launched(counts, 'K9')} (forward "
               f"{counts['ntt_fwd_one']}, inverse {counts['ntt_inv_one']}), K4 "
               f"{launched(counts, 'K4')}", flush=True)
-    return launches, k9_sp, errs
+    return launches, k9_sp, errs, profiled
+
+
+def _compact_leaves(obj) -> dict:
+    """{path: host array} of the leaves of a message that RZK1 writes in
+    the compact row encoding (int32, one axis or more)."""
+    from ringzk_tpu_torch.utils import serial
+
+    return {path: a for path, a in serial._flatten_with_paths(obj)
+            if a is not None and a.dtype == np.int32 and a.ndim >= 1}
+
+
+def _answer(decode, payload: bytes):
+    """A decoder's answer on a payload read as shape (1, 4): the array, or
+    the message of its ValueError."""
+    try:
+        return decode(payload, (1, 4)).tolist()
+    except ValueError as err:
+        return f"ValueError: {err}"
+
+
+def last_modules(dev: torch.device, smi: str, open_ms: float, profiled: dict,
+                 sp_profiled: dict) -> None:
+    """Phase [12]: the modules of the last slice, each step fatal on
+    failure. (a) the native RZK1 row codec on the card's host: open's
+    response z and response context at B_OPEN round-tripped exactly through
+    ``dumps``/``loads``/``rebuild`` (the threaded encoder), the native bytes
+    and arrays equal to the plain numpy codec's at B_WIRE, host ms of both,
+    and each malformed payload of MALFORMED rejected alike by both
+    decoders; (b) ``benchtime.timed_row`` of open's round trip at B_OPEN
+    beside [7]'s CUDA-event median (``open_ms``), with the windows' spread,
+    the fetch-forced cross-check and ``engine_fingerprint()``; (c) the
+    phase ranges: the device ms under each range of the profiled round
+    trips of [7] (open, linear and sum at N=512, each of which must record
+    every range it passes through, commit_scheme/commit inside its proof's
+    commit) and of [11] (open at N=8192 unsharded and through
+    ``protocol_sp`` at one NCCL rank, side by side), and of one keygen; (d)
+    both examples of ``examples_torch`` as subprocesses on the card."""
+    from ringzk_tpu_torch import Params, runtime
+    from ringzk_tpu_torch.ops import sampling
+    from ringzk_tpu_torch.protocols import commit as commit_mod
+    from ringzk_tpu_torch.protocols import open as open_mod
+    from ringzk_tpu_torch.utils import benchtime, serial
+
+    params = Params()
+    gen = torch.Generator(device=dev).manual_seed(120)
+
+    # (a) the native codec
+    t0 = time.perf_counter()
+    lib_path = runtime.build()
+    runtime.lib()
+    print(f"[12] native RZK1 codec: {lib_path.name} built or found by {runtime.compiler()} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    ck = commit_mod.keygen(gen, params, N_DEG)
+    x = sampling.uniform_centered(gen, (B_OPEN, params.l), N_DEG, params.q, dev)
+    rctx, pcom = open_mod.prover_commit(gen, ck, x, params)
+    resp = open_mod.create_response(rctx, open_mod.generate_challenge(gen, pcom, params)[1],
+                                    params)
+    torch.cuda.synchronize()
+    for obj in (resp, rctx):
+        leaves = _compact_leaves(obj)
+        rows = sum(a.size // a.shape[-1] for a in leaves.values())
+        t0 = time.perf_counter()
+        blob = serial.dumps(obj)
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back = serial.rebuild(type(obj), serial.loads(blob), device=dev)
+        dec_ms = (time.perf_counter() - t0) * 1e3
+        if not _same(back, obj):
+            fail(f"[12] {type(obj).__name__} at B={B_OPEN}: the native RZK1 round trip is not "
+                 "exact")
+        print(f"[12] {type(obj).__name__} at B={B_OPEN} ({rows} compact rows of {N_DEG}, threads "
+              f"from {serial._MT_ROWS} rows): dumps {enc_ms:.1f} ms, loads + rebuild "
+              f"{dec_ms:.1f} ms (host clock, device copies included), {len(blob)} bytes "
+              f"({len(blob) / B_OPEN:.1f} a proof), exact", flush=True)
+        del blob, back
+    codec_ms = {}
+    for label, batch in (("native", B_OPEN), ("native", B_WIRE), ("plain", B_WIRE)):
+        enc, dec = (serial.encode_rows, serial.decode_rows) if label == "native" else (
+            serial._encode_rows_numpy, serial._decode_rows_numpy)
+        arrays = {f"{type(o).__name__}.{p}": a for o in (resp, rctx)
+                  for p, a in _compact_leaves(_head(o, batch)).items()}
+        t0 = time.perf_counter()
+        blobs = {k: enc(a) for k, a in arrays.items()}
+        t1 = time.perf_counter()
+        outs = {k: dec(blobs[k], a.shape) for k, a in arrays.items()}
+        t2 = time.perf_counter()
+        if any(not np.array_equal(outs[k], a) for k, a in arrays.items()):
+            fail(f"[12] the {label} codec at B={batch} does not decode what it encoded")
+        codec_ms[label, batch] = ((t1 - t0) * 1e3, (t2 - t1) * 1e3, blobs)
+        rows = sum(a.size // a.shape[-1] for a in arrays.values())
+        print(f"[12] {label} row codec at B={batch}, {rows} rows of {N_DEG} (z, x, r, y): encode "
+              f"{codec_ms[label, batch][0]:.1f} ms, decode {codec_ms[label, batch][1]:.1f} ms "
+              f"(host clock, {os.cpu_count()} cores)", flush=True)
+    if codec_ms["native", B_WIRE][2] != codec_ms["plain", B_WIRE][2]:
+        fail(f"[12] the native codec's bytes differ from the plain codec's at B={B_WIRE}")
+    (ne, nd, _), (pe, pd, _) = codec_ms["native", B_WIRE], codec_ms["plain", B_WIRE]
+    print(f"[12] at B={B_WIRE} the native bytes equal the plain codec's; native against plain: "
+          f"encode {ne:.1f} against {pe:.1f} ms ({pe / ne:.1f}x), decode {nd:.1f} against "
+          f"{pd:.1f} ms ({pd / nd:.1f}x)", flush=True)
+    del codec_ms, rctx, pcom, resp
+    for name, payload in MALFORMED:
+        native, plain = _answer(serial.decode_rows, payload), _answer(serial._decode_rows_numpy,
+                                                                      payload)
+        if native != plain:
+            fail(f"[12] malformed payload '{name}' ({payload.hex(' ')}): native {native}, "
+                 f"plain {plain}")
+        print(f"[12] malformed payload '{name}' ({payload.hex(' ')}) as (1, 4): native and plain "
+              f"decoders both give {native}", flush=True)
+    if any(_answer(serial.decode_rows, pl) != "ValueError: corrupt varint"
+           for _, pl in MALFORMED[:2]):
+        fail("[12] the native decoder accepts a varint past 32 bits")
+
+    # (b) benchtime's median of windows beside [7]'s CUDA-event median
+    def rt_call():
+        return open_mod.roundtrip(gen, ck, x, params)
+
+    dt, dts = benchtime.timed_row(rt_call, (), iters=2, windows=5, warmup=3)
+    rec = benchtime.windows_record(B_OPEN, dt, dts)
+    benchtime.fetch_forced_pass([(rec, rt_call, (), B_OPEN)], iters=2)
+    print(f"[12] benchtime.timed_row of the open round trip N={N_DEG} B={B_OPEN} (5 windows of 2 "
+          f"calls, host clock to a synchronize): median {dt * 1e3:.3f} ms, windows "
+          + ", ".join(f"{t * 1e3:.3f}" for t in dts)
+          + f" ms; [7]'s CUDA-event median {open_ms:.3f} ms; ratio {dt * 1e3 / open_ms:.4f}; "
+          f"record {rec}; engine {benchtime.engine_fingerprint()} on {smi}", flush=True)
+    del x
+
+    # (d) the examples, each in its own interpreter, run beside (c)
+    examples = {name: subprocess.Popen([sys.executable, str(REPO / "examples_torch" / name)],
+                                       cwd=REPO, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+                for name in ("custom_modulus.py", "two_party.py")}
+    t_ex = time.perf_counter()
+
+    # (c) the phase ranges
+    for proto in ("open", "linear", "sum"):
+        prof = profiled[proto]
+        want = {f"{proto}_proof/{p}" for p in ("commit", "generate_challenge",
+                                                "create_response", "verify")}
+        want |= {"commit_scheme/commit", "commit_scheme/verify"}
+        inner = prof.parents.get("commit_scheme/commit")
+        if set(prof.parents) != want or inner != f"{proto}_proof/commit":
+            fail(f"[12] the {proto} round trip recorded the ranges {prof.parents}, not "
+                 f"{sorted(want)} with commit_scheme/commit inside {proto}_proof/commit")
+        if set(prof.ranges) != want:
+            fail(f"[12] the {proto} round trip's device work fell under the ranges "
+                 f"{sorted(prof.ranges)}, not {sorted(want)}")
+        range_report(f"[12] {proto} N={N_DEG} round trip of [7]", prof, smi)
+    kprof = device_split(lambda: commit_mod.keygen(gen, params, N_DEG), ranges=True)
+    if "commit_scheme/keygen" not in kprof.ranges:
+        fail(f"[12] keygen recorded the ranges {kprof.parents} on the device {kprof.ranges}")
+    range_report(f"[12] keygen N={N_DEG}", kprof, smi)
+    sp_rows = {name: range_report(f"[12] open N={N_SP} B={B_SP['open']} {name} of [11]", prof,
+                                  smi) for name, prof in sp_profiled.items()}
+    sp, one = sp_rows.get("sp path", {}), sp_rows.get("unsharded round trip", {})
+    if sp and one:
+        print(f"[12] open N={N_SP}, sp path at one NCCL rank against the unsharded round trip, "
+              "device ms by range with nested ranges: "
+              + ", ".join(f"{name} {sp[name][1]:.3f} / {one[name][1]:.3f}"
+                          + (f" ({sp[name][1] / one[name][1]:.2f}x)" if one[name][1] else "")
+                          for name in one if name in sp)
+              + f" on {smi}", flush=True)
+
+    # (d) the examples' verdicts
+    for name, proc in examples.items():
+        try:
+            out, _ = proc.communicate(timeout=max(1.0, 300 - (time.perf_counter() - t_ex)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"[12] examples_torch/{name} did not end within 300 s")
+        if proc.returncode != 0:
+            fail(f"[12] examples_torch/{name} exited {proc.returncode}:\n{out}")
+        for line in out.splitlines():
+            print(f"[12] examples_torch/{name}: {line}", flush=True)
+    print(f"[12] both examples ran on the card and exited 0 in "
+          f"{time.perf_counter() - t_ex:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -2136,6 +2395,7 @@ def main() -> int:
     k_ntt.fwd_all, k_ntt.inv_all = recorded("K1", k_ntt.fwd_all), recorded("K2", k_ntt.inv_all)
     launches = {}
     path_ms = {}
+    profiled = {}   # each path's profiled round trip, for phase [12]
     for make, name, pp, pck, size in paths:
         gc.collect()
         torch.cuda.empty_cache()
@@ -2188,7 +2448,8 @@ def main() -> int:
         for name, ms in phases.items():
             print(f"  {p.name} phase {name}: median {ms:.3f} ms of 5 on {smi}", flush=True)
         print(f"  {p.name} phases sum {sum(phases.values()):.3f} ms", flush=True)
-        wall_ms, split, counts = device_split(p.roundtrip)
+        prof = device_split(p.roundtrip, ranges=True)
+        wall_ms, split, counts = prof.wall_ms, prof.split, prof.counts
         # the profiler's kernel events against the launch counters of the
         # same round trip: where it missed launches, its device time falls
         # short and the idle share is not measured
@@ -2206,6 +2467,8 @@ def main() -> int:
         else:
             print(f"  {p.name} profiled round trip: the profiler recorded no device time; "
                   "device split not measured", flush=True)
+        range_report(f"{p.name} profiled round trip", prof, smi)
+        profiled[p.name] = prof
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2527,13 +2790,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t11 = time.perf_counter()
-    sp_launches, k9_sp, sp_errs = sp_phase(dev, smi)
+    sp_launches, k9_sp, sp_errs, sp_profiled = sp_phase(dev, smi)
     launches.update(sp_launches)
     for k, e in sp_errs.items():
         errs[k] = max(errs[k], e)
-    print(f"[11] the sp axis: {time.perf_counter() - t11:.1f} s; chip_smoke.py wall time: "
+    print(f"[11] the sp axis: {time.perf_counter() - t11:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    last_modules(dev, smi, path_ms["open"], profiled, sp_profiled)
+    print(f"[12] the last modules: {time.perf_counter() - t12:.1f} s; chip_smoke.py wall time: "
           f"{time.perf_counter() - t_start:.1f} s from its start to here (build, phases "
-          f"[1]-[11]), on {smi}", flush=True)
+          f"[1]-[12]), on {smi}", flush=True)
     print(json.dumps({"kernels": [
         {"name": f"{k} {label}", "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(launched(launches[p], k) for p in launches),

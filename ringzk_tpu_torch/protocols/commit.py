@@ -26,6 +26,7 @@ import torch
 from ..ops import conv_mxu, mat, norms, sampling, zq
 from ..ops.ntt import RingContext, degree, get_ring, lanes
 from ..params import Params
+from ..utils.profiling import annotate
 
 # Largest ring degree for which the digit operators are built (operator
 # memory grows as N^2: 4 * kN * (n+l)N int8, ~400 MB at N=4096).
@@ -115,6 +116,7 @@ def resolve_device(device) -> torch.device:
     return torch.device("cuda")
 
 
+@annotate("commit_scheme/keygen")
 def keygen(gen: torch.Generator, params: Params, n_deg: int, device=None,
            a1p: torch.Tensor | None = None, a2p: torch.Tensor | None = None,
            batch_shape: tuple = ()) -> CommitmentKey:
@@ -210,6 +212,7 @@ def _zero_pad_rows(x: torch.Tensor, n_rows: int) -> torch.Tensor:
     return torch.cat([zeros, x], dim=-2)
 
 
+@annotate("commit_scheme/commit")
 def _commit(gen: torch.Generator, ck: CommitmentKey, x: torch.Tensor, params: Params,
             r: torch.Tensor | None = None):
     """commit() that also returns the matvec A.r, for callers that verify
@@ -244,6 +247,7 @@ def commit(gen: torch.Generator, ck: CommitmentKey, x: torch.Tensor, params: Par
     return opening, com
 
 
+@annotate("commit_scheme/verify")
 def verify(ck: CommitmentKey, com: Commitment, opening: Opening, params: Params, *,
            honest_r_bound: int | None = None,
            ar: torch.Tensor | None = None) -> torch.Tensor:

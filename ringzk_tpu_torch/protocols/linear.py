@@ -21,6 +21,7 @@ import torch
 from ..ops import mat, sampling
 from ..ops.ntt import degree, get_ring, lanes
 from ..params import Params
+from ..utils.profiling import annotate
 from . import commit as commit_mod
 from .commit import Commitment, CommitmentKey, Opening, matvec_key_siblings, verify_ok
 from .open import gaussian_bound, sample_y
@@ -69,6 +70,7 @@ class LinearProofResponse(NamedTuple):
     zp: torch.Tensor  # [..., k, N]
 
 
+@annotate("linear_proof/commit")
 def _prover_commit(gen, ck, g, x, params, r=None, rp=None, y=None, yp=None):
     """prover_commit() that also returns both commits' A.r: (response
     context, proof commitment, A.r of c, A.r of cp)."""
@@ -104,6 +106,7 @@ def prover_commit(gen: torch.Generator, ck: CommitmentKey, g: torch.Tensor,
     return rctx, pcom
 
 
+@annotate("linear_proof/generate_challenge")
 def generate_challenge(gen: torch.Generator, commitment: LinearProofCommitment,
                        params: Params, signs: torch.Tensor | None = None,
                        u: torch.Tensor | None = None):
@@ -119,6 +122,7 @@ def generate_challenge(gen: torch.Generator, commitment: LinearProofCommitment,
             LinearProofChallenge(d=d))
 
 
+@annotate("linear_proof/create_response")
 def create_response(ctx: LinearProofResponseContext, challenge: LinearProofChallenge,
                     params: Params) -> LinearProofResponse:
     """Move 3: z = y + d*r, zp = yp + d*rp."""
@@ -131,6 +135,7 @@ def create_response(ctx: LinearProofResponseContext, challenge: LinearProofChall
     )
 
 
+@annotate("linear_proof/verify")
 def verify(ck: CommitmentKey, response: LinearProofResponse,
            vctx: LinearProofVerificationContext, params: Params) -> torch.Tensor:
     """Move 4. Returns bool [...]."""

@@ -18,6 +18,7 @@ import torch
 from ..ops import mat, sampling
 from ..ops.ntt import degree, get_ring, lanes
 from ..params import Params
+from ..utils.profiling import annotate
 from . import commit as commit_mod
 from .commit import Commitment, CommitmentKey, Opening, matvec_key, verify_ok
 
@@ -67,6 +68,7 @@ class OpenProofResponse(NamedTuple):
     z: torch.Tensor  # [..., k, N]
 
 
+@annotate("open_proof/commit")
 def _prover_commit(gen, ck, x, params, r=None, y=None):
     """prover_commit() that also returns the commit's A.r."""
     n_deg = degree(x)
@@ -90,6 +92,7 @@ def prover_commit(gen: torch.Generator, ck: CommitmentKey, x: torch.Tensor,
     return rctx, pcom
 
 
+@annotate("open_proof/generate_challenge")
 def generate_challenge(gen: torch.Generator, commitment: OpenProofCommitment,
                        params: Params, signs: torch.Tensor | None = None,
                        u: torch.Tensor | None = None):
@@ -102,6 +105,7 @@ def generate_challenge(gen: torch.Generator, commitment: OpenProofCommitment,
     return (OpenProofVerificationContext(c1=c1, t=t, d=d), OpenProofChallenge(d=d))
 
 
+@annotate("open_proof/create_response")
 def create_response(ctx: OpenProofResponseContext, challenge: OpenProofChallenge,
                     params: Params) -> OpenProofResponse:
     """Move 3: z = y + d * r. d*r has |integer coeffs| <= min(kappa, N) * b,
@@ -112,6 +116,7 @@ def create_response(ctx: OpenProofResponseContext, challenge: OpenProofChallenge
     return OpenProofResponse(z=ring.scalar_mul_add(challenge.d, ctx.opening.r, ctx.y, num))
 
 
+@annotate("open_proof/verify")
 def verify(ck: CommitmentKey, response: OpenProofResponse,
            vctx: OpenProofVerificationContext, params: Params) -> torch.Tensor:
     """Move 4. Returns bool [...]: the norm bound on every z_i AND

@@ -22,6 +22,7 @@ import torch
 from ..ops import mat, sampling
 from ..ops.ntt import RingContext, degree, get_ring, lanes
 from ..params import Params
+from ..utils.profiling import annotate
 from . import commit as commit_mod
 from .commit import (Commitment, CommitmentKey, Opening, matvec_key, stack_siblings_ok,
                      verify_ok)
@@ -82,6 +83,7 @@ def _matvec_key_v1(ring: RingContext, ck: CommitmentKey, vs: torch.Tensor,
     return matvec_key(ring, ck, "a", vs, bound), matvec_key(ring, ck, "a", vp, bound)
 
 
+@annotate("sum_proof/commit")
 def _prover_commit(gen, ck, gs, xs, params, rs=None, rp=None, ys=None, yp=None):
     """prover_commit() that also returns both commits' A.r: (response
     context, proof commitment, A.r of the cs, A.r of cp)."""
@@ -125,6 +127,7 @@ def prover_commit(gen: torch.Generator, ck: CommitmentKey, gs: torch.Tensor,
     return rctx, pcom
 
 
+@annotate("sum_proof/generate_challenge")
 def generate_challenge(gen: torch.Generator, commitment: SumProofCommitment,
                        params: Params, signs: torch.Tensor | None = None,
                        u: torch.Tensor | None = None):
@@ -141,6 +144,7 @@ def generate_challenge(gen: torch.Generator, commitment: SumProofCommitment,
             SumProofChallenge(d=d))
 
 
+@annotate("sum_proof/create_response")
 def create_response(ctx: SumProofResponseContext, challenge: SumProofChallenge,
                     params: Params) -> SumProofResponse:
     """Move 3: z_i = y_i + d*r_i (d broadcast over V and k), zp = yp + d*rp."""
@@ -153,6 +157,7 @@ def create_response(ctx: SumProofResponseContext, challenge: SumProofChallenge,
     )
 
 
+@annotate("sum_proof/verify")
 def verify(ck: CommitmentKey, response: SumProofResponse,
            vctx: SumProofVerificationContext, params: Params) -> torch.Tensor:
     """Move 4. Returns bool [...]. A summand count that differs between

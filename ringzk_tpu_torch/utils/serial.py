@@ -11,8 +11,11 @@ deterministic container of named arrays:
 
 encodings: 0 = raw little-endian; 1 = per-row trailing-zero-trimmed zigzag
 varints (the bincode-analog compact form; rows are the innermost N axis).
-The row codec here is vectorized numpy (the JAX package also has a native
-C++ codec; both write the same bytes).
+Encoding 1 runs through the port's native C++ codec (``runtime/codec.cpp``,
+built at first use by the host compiler; threads past :data:`_MT_ROWS`
+rows), with no fallback. The vectorized numpy codec
+(:func:`_encode_rows_numpy`, :func:`_decode_rows_numpy`) is its plain
+version, which the tests hold it to; both write the JAX package's bytes.
 
 Tensors go to the host as numpy at :func:`dumps` only, with the JAX
 package's dtype codes. The port stores the uint32 lanes of a key's NTT
@@ -23,6 +26,7 @@ the tensors back on a device (default: the CUDA card).
 
 from __future__ import annotations
 
+import os
 import struct
 import typing
 from typing import Any
@@ -30,6 +34,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .. import runtime
 from ..protocols.commit import CommitmentKey, resolve_device
 
 _MAGIC = b"RZK1"
@@ -55,10 +60,41 @@ UINT32_FIELDS = {CommitmentKey: ("a1_hat", "a2_hat")}
 # -- row codec (bincode-analog) ---------------------------------------------
 
 
+# Row count past which the native encoder fans out across threads (the
+# multi-host interchange path serializes 10^4..10^5 proofs at once).
+_MT_ROWS = 4096
+
+
 def encode_rows(a: np.ndarray) -> bytes:
     """Trailing-zero-trimmed zigzag varint encoding of [..., N] int32: per
     row a u32 count of the coefficients kept (up to the last nonzero one),
-    then each kept coefficient as a zigzag LEB128 varint."""
+    then each kept coefficient as a zigzag LEB128 varint. Runs the native
+    codec, on min(8, cores) threads from :data:`_MT_ROWS` rows up."""
+    a2d = np.ascontiguousarray(a, np.int32).reshape(-1, a.shape[-1])
+    threads = min(8, os.cpu_count() or 1) if a2d.shape[0] >= _MT_ROWS else 1
+    return runtime.encode_rows(a2d, threads)
+
+
+def decode_rows(buf: bytes, shape) -> np.ndarray:
+    """Inverse of :func:`encode_rows` into an int32 array of ``shape``,
+    through the native codec. Raises ValueError on a corrupt stream, as
+    :func:`_decode_rows_numpy` does and with its words: a row count above
+    the row length, a varint longer than 5 bytes or past 32 bits, or a
+    payload that ends early (trailing bytes are ignored)."""
+    shape, n_rows = _rows_of(shape)
+    return runtime.decode_rows(buf, n_rows, shape[-1]).reshape(shape)
+
+
+def _rows_of(shape) -> tuple:
+    """(shape, number of rows) of a varint entry, which needs a row axis."""
+    shape = tuple(shape)
+    if not shape:
+        raise ValueError("corrupt wire payload: a varint entry needs a row axis")
+    return shape, int(np.prod(shape[:-1], dtype=np.int64)) if len(shape) > 1 else 1
+
+
+def _encode_rows_numpy(a: np.ndarray) -> bytes:
+    """The plain version of :func:`encode_rows`, vectorized numpy."""
     a2d = np.ascontiguousarray(a, np.int32).reshape(-1, a.shape[-1])
     rows, n = a2d.shape
     kept = np.where(a2d != 0, np.arange(1, n + 1), 0).max(1, initial=0)
@@ -81,15 +117,12 @@ def encode_rows(a: np.ndarray) -> bytes:
     return out.tobytes()
 
 
-def decode_rows(buf: bytes, shape) -> np.ndarray:
-    """Inverse of :func:`encode_rows` into an int32 array of ``shape``.
-    Raises ValueError on a corrupt stream: a row count above the row
-    length, a varint longer than 5 bytes or past 32 bits, or a payload that
-    ends early (trailing bytes are ignored, as the JAX codec ignores them)."""
-    shape = tuple(shape)
-    if not shape:
-        raise ValueError("corrupt wire payload: a varint entry needs a row axis")
-    n_rows = int(np.prod(shape[:-1], dtype=np.int64)) if len(shape) > 1 else 1
+def _decode_rows_numpy(buf: bytes, shape) -> np.ndarray:
+    """The plain version of :func:`decode_rows`, vectorized numpy. Raises
+    ValueError on a corrupt stream: a row count above the row length, a
+    varint longer than 5 bytes or past 32 bits, or a payload that ends
+    early (trailing bytes are ignored, as the JAX codec ignores them)."""
+    shape, n_rows = _rows_of(shape)
     row_len = shape[-1]
     b = np.frombuffer(buf, np.uint8)
     ends = np.flatnonzero(b < 0x80)      # candidate varint terminators
@@ -128,9 +161,9 @@ def decode_rows(buf: bytes, shape) -> np.ndarray:
     for j in range(int(length.max())):
         has = length > j
         z[has] |= (b[first[has] + j].astype(np.int64) & 0x7F) << (7 * j)
-    val = (z >> 1) ^ (-(z & 1) & 0xFFFFFFFF)     # un-zigzag, uint32
-    if (val >= 2**32).any():
+    if (z >= 2**32).any():                       # a fifth byte above 0x0F
         raise ValueError("corrupt varint")
+    val = (z >> 1) ^ (-(z & 1) & 0xFFFFFFFF)     # un-zigzag, uint32
     data[np.repeat(rows, kepts), col] = np.where(val >= 2**31, val - 2**32, val)
     return data.reshape(shape)
 

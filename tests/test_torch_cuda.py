@@ -640,3 +640,67 @@ def test_sp_world_one_over_nccl_on_card(cuda, tmp_path):
             assert torch.equal(ok, want & op_ok) and bool(ok.all()) and bool(all_ok)
     finally:
         torch.distributed.destroy_process_group()
+
+
+def test_native_codec_on_card_response(cuda):
+    """An open response made on the card goes through the native RZK1 codec
+    after ``.cpu()``: the bytes equal the plain codec's and rebuild on the
+    card exactly."""
+    params = Params()
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    ck = commit_mod.keygen(gen, params, 512)
+    x = sampling.uniform_centered(gen, (4096, params.l), 512, params.q, cuda)
+    rctx, pcom = open_mod.prover_commit(gen, ck, x, params)
+    resp = open_mod.create_response(rctx, open_mod.generate_challenge(gen, pcom, params)[1],
+                                    params)
+    z = resp.z.cpu().numpy()
+    assert z.shape[0] * z.shape[1] >= serial._MT_ROWS   # the threaded encoder
+    assert serial.encode_rows(z) == serial._encode_rows_numpy(z)
+    import chip_smoke
+
+    for obj in (resp, rctx):
+        back = serial.rebuild(type(obj), serial.loads(serial.dumps(obj)), device=cuda)
+        assert chip_smoke._same(back, obj)
+
+
+def test_phase_ranges_on_the_device_timeline(cuda):
+    """A profiled open round trip leaves its six ranges on the device
+    timeline; ``chip_smoke.device_split`` counts none of those spans as
+    device work, and the device time under the ranges is part of it."""
+    import chip_smoke
+    from ringzk_tpu_torch.utils import profiling
+    from torch.profiler import ProfilerActivity, profile
+
+    params = Params()
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    ck = commit_mod.keygen(gen, params, 512)
+    x = sampling.uniform_centered(gen, (2048, params.l), 512, params.q, cuda)
+    names = {f"open_proof/{p}" for p in ("commit", "generate_challenge", "create_response",
+                                          "verify")} | {"commit_scheme/commit",
+                                                        "commit_scheme/verify"}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        open_mod.roundtrip(gen, ck, x, params)
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = {e.name for e in events
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.is_user_annotation}
+    assert spans == names
+    assert not any(e.is_user_annotation or e.name in names
+                   for e in profiling.device_work(events))
+    split = chip_smoke.device_split(lambda: open_mod.roundtrip(gen, ck, x, params), ranges=True)
+    assert set(split.ranges) == names
+    assert split.parents["commit_scheme/commit"] == "open_proof/commit"
+    # every work event counts once; the two sums differ only by rounding
+    assert 0 < sum(split.ranges.values()) <= sum(split.split.values()) * (1 + 1e-9)
+
+
+def test_two_party_example_on_card(cuda):
+    """examples_torch/two_party.py on the card: the prover a fresh
+    interpreter sharing it, over RZK1 pipes."""
+    import subprocess
+    import sys
+
+    run = subprocess.run([sys.executable, str(REPO / "examples_torch" / "two_party.py")],
+                         capture_output=True, text=True, timeout=600, cwd=REPO)
+    assert run.returncode == 0, run.stderr
+    assert "two-party open proof verified: True" in run.stdout
