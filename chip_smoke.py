@@ -547,20 +547,23 @@ def device_split(fn, ranges: bool = False) -> Profiled:
                     by_range, parents)
 
 
+def nested_ms(prof: Profiled, name: str) -> float:
+    """Device ms of a profiled call under the range ``name``: its own work
+    and that of every range nested in it, by ``prof.parents``."""
+    return prof.ranges.get(name, 0.0) + sum(nested_ms(prof, c)
+                                            for c, up in prof.parents.items() if up == name)
+
+
 def range_report(label: str, prof: Profiled, smi: str) -> dict:
     """Print the device ms under each phase range of a profiled call: its
     own work, and with the ranges nested in it; and the share of the call's
     device time the ranges hold. Returns {range: (own ms, with nested)}."""
-    def nested(name):
-        return prof.ranges.get(name, 0.0) + sum(nested(c) for c, up in prof.parents.items()
-                                                if up == name)
-
     dev_ms = sum(prof.split.values())
     if not prof.ranges or not dev_ms:
         print(f"  {label}: the profiler recorded no device time under a range; not measured",
               flush=True)
         return {}
-    rows = {name: (prof.ranges.get(name, 0.0), nested(name)) for name in prof.parents}
+    rows = {name: (prof.ranges.get(name, 0.0), nested_ms(prof, name)) for name in prof.parents}
     held = sum(prof.ranges.values())
     print(f"  {label}: device ms by phase range, own work [with the ranges nested in it]: "
           + ", ".join(f"{name} {own:.3f}" + (f" [{tot:.3f}]" if tot != own else "")
@@ -1929,17 +1932,19 @@ def last_modules(dev: torch.device, smi: str, open_ms: float, profiled: dict,
     decoders; (b) ``benchtime.timed_row`` of open's round trip at B_OPEN
     beside [7]'s CUDA-event median (``open_ms``), with the windows' spread,
     the fetch-forced cross-check and ``engine_fingerprint()``; (c) the
-    phase ranges: the device ms under each range of the profiled round
-    trips of [7] (open, linear and sum at N=512, each of which must record
-    every range it passes through, commit_scheme/commit inside its proof's
-    commit) and of [11] (open at N=8192 unsharded and through
+    phase and op ranges: the device ms under each range of the profiled
+    round trips of [7] (open, linear and sum at N=512, each of which must
+    record its six phases and its round-trip range, commit_scheme/commit
+    inside its proof's commit, and every other range as ``<parent>/<op>``
+    under that parent, each phase holding by its nested ranges what the
+    ranges named under it hold) and of [11] (open at N=8192 unsharded and through
     ``protocol_sp`` at one NCCL rank, side by side), and of one keygen; (d)
     both examples of ``examples_torch`` as subprocesses on the card."""
     from ringzk_tpu_torch import Params, runtime
     from ringzk_tpu_torch.ops import sampling
     from ringzk_tpu_torch.protocols import commit as commit_mod
     from ringzk_tpu_torch.protocols import open as open_mod
-    from ringzk_tpu_torch.utils import benchtime, serial
+    from ringzk_tpu_torch.utils import benchtime, profiling, serial
 
     params = Params()
     gen = torch.Generator(device=dev).manual_seed(120)
@@ -2031,22 +2036,48 @@ def last_modules(dev: torch.device, smi: str, open_ms: float, profiled: dict,
                 for name in ("custom_modulus.py", "two_party.py")}
     t_ex = time.perf_counter()
 
-    # (c) the phase ranges
+    # (c) the phase and op ranges
     for proto in ("open", "linear", "sum"):
         prof = profiled[proto]
-        want = {f"{proto}_proof/{p}" for p in ("commit", "generate_challenge",
-                                                "create_response", "verify")}
-        want |= {"commit_scheme/commit", "commit_scheme/verify"}
-        inner = prof.parents.get("commit_scheme/commit")
-        if set(prof.parents) != want or inner != f"{proto}_proof/commit":
-            fail(f"[12] the {proto} round trip recorded the ranges {prof.parents}, not "
-                 f"{sorted(want)} with commit_scheme/commit inside {proto}_proof/commit")
-        if set(prof.ranges) != want:
+        trip = f"{proto}_proof/roundtrip"
+        phases = {f"{proto}_proof/{p}" for p in ("commit", "generate_challenge",
+                                                  "create_response", "verify")}
+        phases |= {"commit_scheme/commit", "commit_scheme/verify"}
+        if not phases | {trip} <= set(prof.parents):
+            fail(f"[12] the {proto} round trip recorded the ranges {sorted(prof.parents)}, "
+                 f"without {sorted(phases | {trip} - set(prof.parents))}")
+        if prof.parents["commit_scheme/commit"] != f"{proto}_proof/commit":
+            fail(f"[12] the {proto} round trip ran commit_scheme/commit inside "
+                 f"{prof.parents['commit_scheme/commit']}, not {proto}_proof/commit")
+        # every other range is an op under the range it ran in, and named by it
+        strays = {name: up for name, up in prof.parents.items() if name not in phases | {trip}
+                  and (name.rpartition("/")[2] not in profiling.OPS
+                       or name.rpartition("/")[0] != up)}
+        if strays:
+            fail(f"[12] the {proto} round trip recorded ranges that are not "
+                 f"<parent>/<op in profiling.OPS> under that parent: {strays}")
+        if not set(prof.ranges) <= set(prof.parents):
             fail(f"[12] the {proto} round trip's device work fell under the ranges "
-                 f"{sorted(prof.ranges)}, not {sorted(want)}")
+                 f"{sorted(set(prof.ranges) - set(prof.parents))}, which the host never "
+                 "recorded")
+        # the tree of parents and the names agree: a phase holds its own work and
+        # that of the ranges named under it (open's commit also commit_scheme/commit)
+        for name in phases:
+            by_name = sum(ms for r, ms in prof.ranges.items()
+                          if r == name or r.startswith(name + "/"))
+            if name == f"{proto}_proof/commit":
+                by_name += nested_ms(prof, "commit_scheme/commit")
+            if abs(nested_ms(prof, name) - by_name) > 1e-9 * max(1.0, by_name):
+                fail(f"[12] the {proto} round trip's {name} holds {nested_ms(prof, name):.6f} "
+                     f"device ms by its nested ranges but {by_name:.6f} by their names")
+        if abs(nested_ms(prof, trip) - sum(prof.ranges.values())) > 1e-9 * max(
+                1.0, sum(prof.ranges.values())):
+            fail(f"[12] the {proto} round trip's ranged device work is not all under {trip}")
+        if not nested_ms(prof, f"{proto}_proof/verify") > 0:
+            fail(f"[12] the {proto} round trip's verify held no device work")
         range_report(f"[12] {proto} N={N_DEG} round trip of [7]", prof, smi)
     kprof = device_split(lambda: commit_mod.keygen(gen, params, N_DEG), ranges=True)
-    if "commit_scheme/keygen" not in kprof.ranges:
+    if not nested_ms(kprof, "commit_scheme/keygen") > 0:
         fail(f"[12] keygen recorded the ranges {kprof.parents} on the device {kprof.ranges}")
     range_report(f"[12] keygen N={N_DEG}", kprof, smi)
     sp_rows = {name: range_report(f"[12] open N={N_SP} B={B_SP['open']} {name} of [11]", prof,

@@ -17,10 +17,12 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import annotate
 from . import ntt, zq
 from .ntt import RingContext
 
 
+@annotate("pointwise")
 def matvec_hat(ring: RingContext, a_hat: torch.Tensor, v_hat: torch.Tensor) -> torch.Tensor:
     """NTT-domain (matrix . vector): a_hat [P, *A, rows, k, N] (const form),
     v_hat [P, *B, k, N] (plain form), broadcast batch prefixes. Returns
@@ -56,6 +58,7 @@ def matvec(ring: RingContext, a_hat: torch.Tensor, v_hat: torch.Tensor) -> torch
     return out
 
 
+@annotate("pointwise")
 def scalar_mul_hat(ring: RingContext, g_hat: torch.Tensor, m_hat: torch.Tensor) -> torch.Tensor:
     """Multiply every entry of an NTT-domain stack by the polynomial g:
     g_hat [P, *, N] const form, m_hat [P, *, rows, N] plain form; g
@@ -63,11 +66,13 @@ def scalar_mul_hat(ring: RingContext, g_hat: torch.Tensor, m_hat: torch.Tensor) 
     return ring.dot_hat(g_hat.unsqueeze(-2), m_hat)
 
 
+@annotate("modq")
 def add_centered(ring: RingContext, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Elementwise ring addition on centered tensors."""
     return zq.add_centered(ring.qctx, a, b)
 
 
+@annotate("modq")
 def sub_centered(ring: RingContext, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return zq.sub_centered(ring.qctx, a, b)
 
@@ -77,6 +82,7 @@ def split_rows(x: torch.Tensor, r: int):
     return x[..., :r, :], x[..., r:, :]
 
 
+@annotate("modq")
 def poly_equal(a: torch.Tensor, b: torch.Tensor, struct_axes: int = 2) -> torch.Tensor:
     """Exact equality of centered poly stacks, reduced over the trailing
     ``struct_axes`` structure axes plus the ring axis (over every rank's

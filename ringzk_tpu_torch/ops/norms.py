@@ -31,12 +31,14 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import annotate
 from . import ntt, u64
 
 _LIMB = 31
 _LOW = (1 << _LIMB) - 1
 
 
+@annotate("norm")
 def norm2_leq(x: torch.Tensor, bound: int, dim: int = -1) -> torch.Tensor:
     """Boolean tensor: integer-sqrt(sum x^2) <= bound, exactly."""
     limit = bound * bound + 2 * bound

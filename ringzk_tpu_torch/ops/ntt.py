@@ -27,6 +27,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
 from . import zq
 from .kernels import ntt as ntt_kernel
 from .kernels import ntt_one as ntt_one_kernel
@@ -218,6 +219,7 @@ class RingContext:
 
     # -- forward / inverse transforms -------------------------------------
 
+    @annotate("ntt_fwd")
     def fwd(self, x: torch.Tensor, num: int | None = None) -> torch.Tensor:
         """Centered [..., N] -> plain NTT domain [num, ..., N]: K1 on int32,
         K7 on wide rings (any int64).
@@ -232,6 +234,7 @@ class RingContext:
         fwd_all = ntt_wide_kernel.fwd_wide_all if self.wide else ntt_kernel.fwd_all
         return fwd_all(self, x2d, num).reshape((num,) + lead + (self.n,))
 
+    @annotate("ntt_fwd")
     def fwd_const(self, x: torch.Tensor, num: int | None = None) -> torch.Tensor:
         """fwd() then per-prime to-Montgomery: the form of the multiplicative
         operand of dot_hat and scalar products."""
@@ -252,6 +255,7 @@ class RingContext:
                 return i + 1
         raise ValueError(f"bound 2^{bound.bit_length()} exceeds full CRT range")
 
+    @annotate("ntt_inv")
     def inv(self, xhat: torch.Tensor) -> torch.Tensor:
         """Plain NTT domain [P, ..., N] -> centered [..., N]: K2 (int32), K8
         on wide rings (int64).
@@ -324,6 +328,7 @@ class RingContext:
 
     # -- NTT-domain (pointwise) algebra: inputs/outputs [P, ..., N] -------
 
+    @annotate("pointwise")
     def dot_hat(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Pointwise product; exactly one operand in const (Montgomery) form,
         the result in plain form. Operands share the prime-subset size."""
@@ -369,6 +374,7 @@ class RingContext:
             out = self.add_hat(out, a.select(axis, j))
         return out
 
+    @annotate("ntt_inv")
     def sum_to_centered(self, a: torch.Tensor, axis: int) -> torch.Tensor:
         """Exact ``inv(sum_hat(a, axis))`` for any axis length, centered:
         chunks of ACC_MAX terms are reconstructed out of the NTT
@@ -388,6 +394,7 @@ class RingContext:
         """Exact negacyclic product of centered polys [..., N] mod q."""
         return self.inv(self.dot_hat(self.fwd_const(a), self.fwd(b)))
 
+    @annotate("scalar_mul_add")
     def scalar_mul_add(self, d, m, t, num: int | None = None) -> torch.Tensor:
         """``t + d * m`` mod q, centered: d [..., N] broadcast over the
         structure axes of m, t [..., *struct, N] (rows; summands x rows in

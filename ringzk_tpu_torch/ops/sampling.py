@@ -13,10 +13,12 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import annotate
 from .kernels import challenge as challenge_kernel
 from .u64 import narrow, widen
 
 
+@annotate("sample")
 def uniform_centered(gen: torch.Generator, shape: tuple, n: int, bound: int,
                      device) -> torch.Tensor:
     """Uniform iid coefficients in [-bound, bound], ``shape + (n,)``: int32
@@ -29,6 +31,7 @@ def uniform_centered(gen: torch.Generator, shape: tuple, n: int, bound: int,
                          device=device, dtype=torch.int64).to(dtype)
 
 
+@annotate("sample")
 def gaussian_rounded(gen: torch.Generator, shape: tuple, n: int, sigma: float,
                      device) -> torch.Tensor:
     """Iid N(0, sigma) float32 draws truncated toward zero to int32."""
@@ -49,6 +52,7 @@ def challenge_draws(gen: torch.Generator, shape: tuple, n: int, device):
     return signs, u
 
 
+@annotate("challenge")
 def challenge(gen: torch.Generator, shape: tuple, n: int, kappa: int, device,
               signs: torch.Tensor | None = None,
               u: torch.Tensor | None = None) -> torch.Tensor:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import annotate
 from .montgomery import MontCtx
 from .u64 import MASK32, narrow
 
@@ -30,6 +31,7 @@ def to_centered(ctx: MontCtx, u):
     return narrow(u - torch.where(u > ctx.p // 2, ctx.p, 0))
 
 
+@annotate("modq")
 def add_centered(ctx, a, b):
     """(a + b) mod q on centered operands, result centered: int32 for a
     MontCtx, int64 for a Mont64Ctx (dispatched on ``ctx.is64``)."""
@@ -38,6 +40,7 @@ def add_centered(ctx, a, b):
     return to_centered(ctx, ctx.add(to_unsigned(ctx, a), to_unsigned(ctx, b)))
 
 
+@annotate("modq")
 def sub_centered(ctx, a, b):
     if getattr(ctx, "is64", False):
         return ctx.sub_centered_i64(a, b)

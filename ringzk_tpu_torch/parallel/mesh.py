@@ -43,6 +43,7 @@ from ..protocols import linear as linear_mod
 from ..protocols import open as open_mod
 from ..protocols import sum as sum_mod
 from ..protocols.commit import CommitmentKey
+from ..utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +122,7 @@ def replicate(mesh: Mesh, ck: CommitmentKey | None, params: Params) -> Commitmen
     return commit_mod.build_key(*mats, params)
 
 
+@annotate("mesh/all_verified")
 def all_verified(mesh: Mesh, ok: torch.Tensor) -> torch.Tensor:
     """The AND of every rank's verdicts (a bool scalar tensor, identical on
     all ranks): one all-reduce MIN of an int32 flag."""

@@ -154,6 +154,7 @@ def keygen(gen: torch.Generator, params: Params, n_deg: int, device=None,
     return build_key(a1, a2, params)
 
 
+@annotate("key_matvec")
 def matvec_key(ring: RingContext, ck: CommitmentKey, which: str, v: torch.Tensor,
                bound: int) -> torch.Tensor:
     """(key matrix . v) mod q -> centered [..., rows, N] (the ring's dtype).

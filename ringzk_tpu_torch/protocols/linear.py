@@ -163,6 +163,7 @@ def verify(ck: CommitmentKey, response: LinearProofResponse,
     return ok & eq1 & eq2 & eq3
 
 
+@annotate("linear_proof/roundtrip")
 def roundtrip(gen: torch.Generator, ck: CommitmentKey, g: torch.Tensor, x: torch.Tensor,
               params: Params, chains: int = 1):
     """The full 3-move protocol plus both opening checks. Returns (ok,

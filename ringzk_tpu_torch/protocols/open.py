@@ -30,6 +30,7 @@ def gaussian_bound(params: Params, n_deg: int) -> int:
     return 16 * params.standard_deviation(n_deg)
 
 
+@annotate("sample")
 def sample_y(gen: torch.Generator, params: Params, n_deg: int, batch_shape: tuple,
              device) -> torch.Tensor:
     sigma = params.standard_deviation(n_deg)
@@ -133,6 +134,7 @@ def verify(ck: CommitmentKey, response: OpenProofResponse,
     return ok_norm & mat.poly_equal(lhs, rhs, struct_axes=1)
 
 
+@annotate("open_proof/roundtrip")
 def roundtrip(gen: torch.Generator, ck: CommitmentKey, x: torch.Tensor, params: Params,
               chains: int = 1):
     """The full 3-move protocol plus the standalone opening check, the unit

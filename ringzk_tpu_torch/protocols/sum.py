@@ -189,6 +189,7 @@ def verify(ck: CommitmentKey, response: SumProofResponse,
     return ok & eq1 & eq2 & eq3
 
 
+@annotate("sum_proof/roundtrip")
 def roundtrip(gen: torch.Generator, ck: CommitmentKey, gs: torch.Tensor, xs: torch.Tensor,
               params: Params, chains: int = 1):
     """The full 3-move protocol plus the opening checks of cp and every

@@ -1,11 +1,22 @@
-"""Phase ranges, device traces and a host phase timer.
+"""Phase and op ranges, and device traces.
 
 Port of ``ringzk_tpu.utils.profiling``. The protocol phase functions of
 ``protocols/{commit,open,linear,sum}.py`` carry :func:`annotate` ranges
 under the JAX package's names (``commit_scheme/commit``,
-``open_proof/verify``, ...), so one profiled call splits its host and
-device time by phase:
+``open_proof/verify``, ...), each round trip one range around its whole
+call (``open_proof/roundtrip``, chains included) and the dp all-reduce one
+(``mesh/all_verified``). The ring algebra's and the key matvec's functions
+carry op ranges (``key_matvec``, ``ntt_fwd``, ``norm``, ... : :data:`OPS`),
+so one profiled call splits its host and device time by phase and by op:
 
+* a name with a ``/`` is a phase's and records as given; a bare name is an
+  op's and records under the innermost open range of the program as
+  ``<that range's recorded name>/<op>`` (``open_proof/verify/key_matvec``),
+  or as just ``<op>`` outside every range. Each recorded name so has one
+  parent, and an op's time stays with the phase it ran in. A range opened
+  inside an open range of the same op (or of the same phase name) opens
+  none: ``sum_to_centered`` calling ``inv`` is one ``ntt_inv`` range, a
+  chained round trip one ``<proof>/roundtrip`` range;
 * under ``torch.profiler`` (:func:`device_trace`), each range is a
   ``record_function`` event on the host and, where it launched device
   work, a ``gpu_user_annotation`` span on the device timeline, from the
@@ -18,8 +29,10 @@ device time by phase:
   same ranges into NVTX ranges. :func:`annotate` does not call
   ``torch.cuda.nvtx`` itself: a CPU build of torch has no NVTX and raises.
 
-With no profiler on, a range costs only the host's entry into and exit
-from ``record_function``.
+A range enters ``record_function`` only while a profiler listens
+(:func:`enabled`). With none, a range is one check of that flag and keeps
+no state; ``record_function`` itself costs several microseconds a range
+on the host even then.
 """
 
 from __future__ import annotations
@@ -28,19 +41,86 @@ import contextlib
 import functools
 import os
 import tempfile
+import threading
 import time
 
 import torch
 
+# The ops whose functions carry op ranges (the ring algebra's and the key
+# matvec's): the last part of every recorded name that is not a phase's.
+OPS = ("key_matvec", "ntt_fwd", "ntt_inv", "pointwise", "scalar_mul_add", "challenge",
+       "sample", "norm", "modq")
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_local = threading.local()
+
+
+def enabled() -> bool:
+    """Whether a profiler listens (``torch.profiler.profile``, the
+    autograd profiler, ``emit_nvtx``): the check ``record_function``
+    itself rests on."""
+    return _profiler_enabled()
+
+
+def _open_ranges() -> list:
+    """This thread's open ranges of the program, innermost last, by their
+    recorded names (kept only while a profiler listens)."""
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Range:
+    """An entered ``record_function`` under the name :func:`span` gives it."""
+
+    __slots__ = ("name", "rf")
+
+    def __init__(self, name: str):
+        self.name, self.rf = name, None
+
+    def __enter__(self):
+        stack = _open_ranges()
+        top = stack[-1] if stack else None
+        if top is not None and (top == self.name or top.endswith("/" + self.name)):
+            return self                      # re-entered: the open range holds it
+        name = self.name if top is None or "/" in self.name else f"{top}/{self.name}"
+        self.rf = torch.profiler.record_function(name)
+        self.rf.__enter__()
+        stack.append(name)
+        return self
+
+    def __exit__(self, *exc):
+        if self.rf is None:
+            return False
+        try:
+            self.rf.__exit__(*exc)
+        finally:
+            _open_ranges().pop()
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """Context manager: the block runs inside the range ``name`` (see the
+    module's docstring for how the range is named) while a profiler
+    listens, and bare otherwise."""
+    return _Range(name) if _profiler_enabled() else _OFF
+
 
 def annotate(name: str):
-    """Decorator: runs the function inside
-    ``torch.profiler.record_function(name)``."""
+    """Decorator: runs the function inside :func:`span` ``(name)``, and
+    straight through, without entering a context, while no profiler
+    listens."""
 
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            with torch.profiler.record_function(name):
+            if not _profiler_enabled():
+                return fn(*args, **kwargs)
+            with span(name):
                 return fn(*args, **kwargs)
 
         return wrapper
@@ -116,27 +196,3 @@ def range_parents(events) -> dict:
             up = up.cpu_parent
         parents.setdefault(e.name, None if up is None else up.name)
     return parents
-
-
-class Timer:
-    """Wall-clock phase timer with a report() table (host-side; for
-    device-accurate numbers use device_trace)."""
-
-    def __init__(self):
-        self.phases = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.phases[name] = self.phases.get(name, 0.0) + time.perf_counter() - t0
-
-    def report(self) -> str:
-        total = sum(self.phases.values()) or 1.0
-        lines = [
-            f"{k:32s} {v * 1e3:10.2f} ms {100 * v / total:5.1f}%"
-            for k, v in sorted(self.phases.items(), key=lambda kv: -kv[1])
-        ]
-        return "\n".join(lines)

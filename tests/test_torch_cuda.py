@@ -29,6 +29,7 @@ from ringzk_tpu_torch.protocols import open as open_mod
 from ringzk_tpu_torch.protocols import sum as sum_mod
 from ringzk_tpu_torch.utils import serial
 from ntt_wrap_rows import wrap_rows
+from range_names import phase_names, want_op_names
 
 pytestmark = pytest.mark.cuda
 Q = 3_515_337_053
@@ -688,8 +689,11 @@ def test_native_codec_on_card_response(cuda):
 
 
 def test_phase_ranges_on_the_device_timeline(cuda):
-    """A profiled open round trip leaves its six ranges on the device
-    timeline; ``chip_smoke.device_split`` counts none of those spans as
+    """A profiled open round trip records on the host exactly its six phase
+    ranges, its round-trip range and the op ranges its phases run, each op
+    under its phase's name (``open_proof/verify/key_matvec``) and each name
+    under one parent; on the device timeline only ranges the host
+    recorded. ``chip_smoke.device_split`` counts none of those spans as
     device work, and the device time under the ranges is part of it."""
     import chip_smoke
     from ringzk_tpu_torch.utils import profiling
@@ -699,23 +703,71 @@ def test_phase_ranges_on_the_device_timeline(cuda):
     gen = torch.Generator(device=cuda).manual_seed(10)
     ck = commit_mod.keygen(gen, params, 512)
     x = sampling.uniform_centered(gen, (2048, params.l), 512, params.q, cuda)
-    names = {f"open_proof/{p}" for p in ("commit", "generate_challenge", "create_response",
-                                          "verify")} | {"commit_scheme/commit",
-                                                        "commit_scheme/verify"}
+    phases = phase_names("open")
+    want = phases | {"open_proof/roundtrip"} | want_op_names("open", "roundtrip")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         open_mod.roundtrip(gen, ck, x, params)
         torch.cuda.synchronize()
     events = prof.events()
+    ups = {}
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CUDA or not e.is_user_annotation
+                or ":" in e.name):
+            continue
+        up = e.cpu_parent
+        while up is not None and not up.is_user_annotation:
+            up = up.cpu_parent
+        ups.setdefault(e.name, set()).add(None if up is None else up.name)
     spans = {e.name for e in events
              if e.device_type == torch.autograd.DeviceType.CUDA and e.is_user_annotation}
-    assert spans == names
-    assert not any(e.is_user_annotation or e.name in names
+    assert set(ups) == want, (sorted(set(ups) - want), sorted(want - set(ups)))
+    assert ups["open_proof/roundtrip"] == {None}
+    assert ups["commit_scheme/commit"] == {"open_proof/commit"}
+    for name in want - phases - {"open_proof/roundtrip"}:
+        assert ups[name] == {name.rpartition("/")[0]}, (name, ups[name])
+    for name in phases - {"commit_scheme/commit"}:
+        assert ups[name] == {"open_proof/roundtrip"}, (name, ups[name])
+    assert {f"{p}/key_matvec" for p in ("commit_scheme/commit", "open_proof/commit",
+                                        "open_proof/verify")} <= spans <= want
+    assert not any(e.is_user_annotation or e.name in want
                    for e in profiling.device_work(events))
     split = chip_smoke.device_split(lambda: open_mod.roundtrip(gen, ck, x, params), ranges=True)
-    assert set(split.ranges) == names
+    assert set(split.parents) == want
+    assert set(split.ranges) <= spans
     assert split.parents["commit_scheme/commit"] == "open_proof/commit"
+    assert split.parents["open_proof/verify/key_matvec"] == "open_proof/verify"
     # every work event counts once; the two sums differ only by rounding
     assert 0 < sum(split.ranges.values()) <= sum(split.split.values()) * (1 + 1e-9)
+
+
+def test_ranges_reach_emit_nvtx(cuda, monkeypatch):
+    """Under ``emit_nvtx`` (Nsight Systems' view) a profiler listens: an
+    open round trip on the card enters ``record_function``, which pushes
+    each NVTX range, for its phases and its op ranges by their recorded
+    names."""
+    from ringzk_tpu_torch.utils import profiling
+
+    params = Params()
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    ck = commit_mod.keygen(gen, params, 512)
+    x = sampling.uniform_centered(gen, (256, params.l), 512, params.q, cuda)
+    names, real = [], torch.profiler.record_function
+
+    def counting(name, *args, **kwargs):
+        names.append(name)
+        return real(name, *args, **kwargs)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    with torch.autograd.profiler.emit_nvtx():
+        assert profiling.enabled()
+        ok, op = open_mod.roundtrip(gen, ck, x, params)
+        torch.cuda.synchronize()
+    assert bool(ok.all()) and bool(op.all())
+    assert not profiling.enabled()
+    assert {"open_proof/roundtrip", "open_proof/verify", "commit_scheme/commit",
+            "open_proof/verify/key_matvec", "open_proof/verify/norm",
+            "open_proof/generate_challenge/challenge"} <= set(names)
+    assert profiling._open_ranges() == []
 
 
 def test_two_party_example_on_card(cuda):
