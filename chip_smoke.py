@@ -35,7 +35,9 @@ opening and the RZK1 wire format. Phases, each fatal on failure:
    8192 rows or batch elements), K1 at all three primes and K2 on its images over the
    calibration's 393,216 rows, K9 forward and inverse at each prime (8192
    rows, and 393,216 at prime 0), K10 at each prime at N=512 and at prime
-   0 at N=1024 (8192 rows), K11 at [24576, 512], each equal to its plain
+   0 at N=1024 (8192 rows), K11 at [24576, 512], modq (the narrow ring's
+   centred add and sub) at the benchmark cells' shapes on centred operands
+   and the int32 extremes, each equal to its plain
    PyTorch version (the digit operators of K3, K6 and K10 are packed
    first, as set-up, and the packing time is printed)
    (integers: the tolerance is zero); K9's images of residues equal plane
@@ -50,15 +52,15 @@ opening and the RZK1 wire format. Phases, each fatal on failure:
    probes (linear's wrong relation, and on wide rings a z coefficient of
    -2^63) reject; every shape at which the run launched K1 or K2 must be
    one that [3] checked;
-6. launch counts: K3, K4 and K5 and not K6 ran on every narrow N=512
-   path; K4, K7 and K8 and none of K3, K5 and K6 on every wide one; K4, K5
-   and K6 and not K3 on every larger-ring path (linear and sum also K1 and
-   K2); K1, K2, K9, K10 and K11 in the calibration run; and each of K1-K11
-   on at least one run;
+6. launch counts: K3, K4, K5 and modq and not K6 ran on every narrow
+   N=512 path; K4, K7 and K8 and none of K3, K5, K6 and modq on every wide
+   one; K4, K5, K6 and modq and not K3 on every larger-ring path (linear
+   and sum also K1 and K2); K1, K2, K9, K10 and K11 in the calibration run;
+   and each of K1-K11 and modq on at least one run;
 7. timing, with CUDA events after a warm-up, per path: the round trip
    (median of 5 calls), each phase (median of 5), one round trip under
    ``torch.profiler`` (after a warm-up call) for the device time by kind
-   (K1-K8, other device work: kernels and memory operations, not the
+   (K1-K11, modq, other device work: kernels and memory operations, not the
    phase ranges' spans on the device timeline) and the idle share, the
    latter only when the profiler recorded every launch the counters saw,
    with the device time under each phase range, and one round trip for the
@@ -68,7 +70,8 @@ opening and the RZK1 wire format. Phases, each fatal on failure:
    the composed route it replaced (K1, dot_hat, K2 and the centered add),
    and K1-K4 (K1 and K2 at each shape the paths launched them and at the
    calibration's; K4 also at open N=1024 and N=4096) and K6-K11 (K7 and K8
-   at each shape of [3]) against their plain versions, each beside its bound
+   at each shape of [3]) and modq (at [3]'s shapes, its bound 12 bytes an
+   element) against their plain versions, each beside its bound
    and its calibrated bound (K10 forward and inverse at the calibration's
    393,216 rows also equal to their plain versions); K6 also beside K3 on
    the side-by-side layout of the same operator; K3, K6 and K10 beside
@@ -244,12 +247,15 @@ KERNEL_NAMES = {"K1": "ntt_fwd_kernel", "K2": "ntt_inv_kernel",
                 "K3": "matvec_digits_kernel", "K4": "challenge_select_kernel",
                 "K5": "scalar_mul_add_kernel", "K6": "matvec_colblock_kernel",
                 "K7": "ntt_fwd_wide_kernel", "K8": "ntt_inv_wide_kernel",
-                "K9": "_one_kernel", "K10": "ntt_dense_kernel", "K11": "mac_chain_kernel"}
-# each kernel's launch counters (K9's forward and inverse are two kernels)
+                "K9": "_one_kernel", "K10": "ntt_dense_kernel", "K11": "mac_chain_kernel",
+                "modq": "modq_addsub_kernel"}
+# each kernel's launch counters (K9's forward and inverse are two kernels,
+# modq's add and sub two instances of one)
 COUNTERS = {"K1": ("ntt_fwd",), "K2": ("ntt_inv",), "K3": ("matvec_digits",),
             "K4": ("challenge_select",), "K5": ("scalar_mul_add",), "K6": ("matvec_colblock",),
             "K7": ("ntt_fwd_wide",), "K8": ("ntt_inv_wide",),
-            "K9": ("ntt_fwd_one", "ntt_inv_one"), "K10": ("ntt_dense",), "K11": ("mac_chain",)}
+            "K9": ("ntt_fwd_one", "ntt_inv_one"), "K10": ("ntt_dense",), "K11": ("mac_chain",),
+            "modq": ("modq_add", "modq_sub")}
 K9_ROWS = 3 * B_OPEN      # bench.py's NTT roofline polynomials, 131072 * k
 CHECK_ROWS = 8192         # rows of the K9 (every prime) and K10 checks
 K11_SHAPE = (3 * 8192, 512)   # calibrate_vpu.py's probe
@@ -264,6 +270,14 @@ K5_SHAPES = (("open response z = y + d.r", B_OPEN, 3, 1, N_DEG),
              ("open verify t + c1.d", B_OPEN_LARGE[1024], 1, 2, 1024),
              ("open response z = y + d.r", B_OPEN_LARGE[4096], 3, 1, 4096),
              ("open verify t + c1.d", B_OPEN_LARGE[4096], 1, 2, 4096))
+# modq, the narrow ring's centred add and sub, at its shapes in the
+# benchmark's cells: (label, operand shape, add or sub); the first is the
+# kernels line's row
+MODQ_SHAPES = (("open N=512 c = A r + [0; x]", (B_OPEN, 2, N_DEG), "add"),
+               ("open N=1024 c = A r + [0; x]", (B_OPEN, 2, 1024), "add"),
+               ("sum N=1024 the summands' commits", (B_SUM, VL, 2, 1024), "add"),
+               ("sum N=1024 the aggregate's commit", (B_SUM, 2, 1024), "add"),
+               ("sum N=1024 the verify's sub", (B_SUM, 1, 1024), "sub"))
 # K4 at the larger rings' open batches, beside N=512's (phase [3] and [7])
 K4_LARGE = (1024, 4096)
 # K1 and K2 at each shape linear and sum launch them on the default ring,
@@ -512,7 +526,8 @@ def device_split(fn, ranges: bool = False) -> Profiled:
     the spin on the device timeline count. Device time is that of kernels
     and memory operations (``profiling.device_work``): the spans the phase
     ranges leave on the device timeline (gpu_user_annotation) overlap them
-    and are left out. The split and counts have kinds K1-K8 and "other";
+    and are left out. The split and counts have the kinds of
+    ``KERNEL_NAMES`` and "other";
     they are empty when the profiler recorded no device time after the
     spin."""
     from torch.profiler import ProfilerActivity, profile
@@ -785,13 +800,14 @@ class ProtoPath(NamedTuple):
 def path_kernels(proto: str, wide: bool, n: int) -> tuple:
     """(kernels the path must launch, kernels it must not): K3 carries the
     key matvecs of N=512 keys, K6 those of larger ones; wide rings take the
-    NTT path (K7, K8) and no K3, K5 or K6; linear and sum transform their g
-    products with K1/K2 on narrow rings."""
+    NTT path (K7, K8) and no K3, K5 or K6, and add their centred int64
+    residues without modq; linear and sum transform their g products with
+    K1/K2 on narrow rings."""
     if wide:
-        return ("K4", "K7", "K8"), ("K3", "K5", "K6")
+        return ("K4", "K7", "K8"), ("K3", "K5", "K6", "modq")
     matvec, other = ("K3", "K6") if n == N_DEG else ("K6", "K3")
     g_products = ("K1", "K2") if proto != "open" else ()
-    return g_products + (matvec, "K4", "K5"), (other,)
+    return g_products + (matvec, "K4", "K5", "modq"), (other,)
 
 
 class Recorder:
@@ -1030,7 +1046,7 @@ def user_surface(dev: torch.device, smi: str) -> None:
             wall_ms, split = device_split(rt_call)[:2]
             idle = (f"device time {sum(split.values()):.3f} ms against a host wall of "
                     f"{wall_ms:.3f} ms (idle share {max(0.0, 1 - sum(split.values()) / wall_ms):.2%}"
-                    f"; K1-K8 {sum(v for k, v in split.items() if k != 'other'):.3f} ms)"
+                    f"; K1-K11 and modq {sum(v for k, v in split.items() if k != 'other'):.3f} ms)"
                     if split else "device split not measured")
             print(f"[9] {proto} roundtrip chains={chains} B={batch}: median {ms:.3f} ms of 5, "
                   f"{batch / ms * 1e3:.1f} verified proofs/s, peak {peak / 2**30:.3f} GiB above "
@@ -2589,6 +2605,7 @@ def main() -> int:
     from ringzk_tpu_torch.ops.kernels import challenge as k_chal
     from ringzk_tpu_torch.ops.kernels import mac as k_mac
     from ringzk_tpu_torch.ops.kernels import matvec as k_mv
+    from ringzk_tpu_torch.ops.kernels import modq as k_modq
     from ringzk_tpu_torch.ops.kernels import ntt as k_ntt
     from ringzk_tpu_torch.ops.kernels import ntt_dense as k_dense
     from ringzk_tpu_torch.ops.kernels import ntt_one as k_one
@@ -2878,6 +2895,20 @@ def main() -> int:
     x11 = uint32s(K11_SHAPE[0], 2**32, K11_SHAPE[1])
     errs["K11"] = compare(f"K11 mac_chain chain={k_mac.CHAIN}", k_mac.mac_chain(x11),
                           k_mac.mac_chain_plain(x11))
+    # modq on centred operands, the paths' values, with the int32 extremes
+    # and the centred edges in the first elements of both
+    edges = torch.tensor([q // 2, -(q // 2), 0, 1, -1, -2**31, 2**31 - 1], dtype=torch.int32,
+                         device=dev)
+    pairs = torch.cartesian_prod(edges, edges).t()
+    modq_in, errs["modq"] = {}, 0
+    for label, shape, op in MODQ_SHAPES:
+        a, b = centered(shape), centered(shape)
+        a.view(-1)[:pairs.shape[1]], b.view(-1)[:pairs.shape[1]] = pairs
+        fn, plain = ((k_modq.modq_add, k_modq.modq_add_plain) if op == "add"
+                     else (k_modq.modq_sub, k_modq.modq_sub_plain))
+        modq_in[label] = a, b
+        errs["modq"] = max(errs["modq"], compare(f"modq {op} {label} {list(shape)}",
+                                                 fn(ring.qctx, a, b), plain(ring.qctx, a, b)))
 
     # 4. known answers (the JAX package's own outputs, with its draws)
     kat_files = (("open", "kat_open_n512.npz", params), ("linear", "kat_linear_n512.npz", params),
@@ -3112,9 +3143,10 @@ def main() -> int:
                 fail(f"kernel {k} ({counter}) was not launched on any run")
     if set(K12_PATH_SHAPES) - k12_launched:
         fail(f"no path launched K1/K2 at {sorted(set(K12_PATH_SHAPES) - k12_launched)}")
-    print("[6] every kernel K1-K11 launched on at least one run; K3, K4 and K5 and not K6 "
-          "on each narrow N=512 path; K4, K7 and K8 and none of K3, K5 and K6 on each wide "
-          "one; K4, K5 and K6 and not K3 on each larger-ring path; K1, K2, K9, K10 and K11 in "
+    print("[6] every kernel K1-K11 and modq launched on at least one run; K3, K4, K5 and modq "
+          "and not K6 on each narrow N=512 path; K4, K7 and K8 and none of K3, K5, K6 and modq "
+          "on each wide one; K4, K5, K6 and modq and not K3 on each larger-ring path; K1, K2, "
+          "K9, K10 and K11 in "
           "the calibration run", flush=True)
 
     # 7. K5 at its shapes: kernel, plain version, and the composed route it
@@ -3267,6 +3299,18 @@ def main() -> int:
                 for c in v.split(K6_CHECK_ROWS)]),
             f"matvec_colblock N={n} v_digits=3 B={b}",
             lambda c, b=b, n=n: matvec_bound(b, params.k * n, n, 3))
+    # modq at each of its shapes: bytes bound it, 4 in from each operand
+    # and 4 out an element (its ~20 32-bit operations an element take a
+    # third of that time at the ALU rate)
+    for j, (label, shape, op) in enumerate(MODQ_SHAPES):
+        a, b = modq_in.pop(label)
+        fn, plain = ((k_modq.modq_add, k_modq.modq_add_plain) if op == "add"
+                     else (k_modq.modq_sub, k_modq.modq_sub_plain))
+        timed["modq" if j == 0 else f"modq ({label})"] = (
+            lambda a=a, b=b, fn=fn: fn(ring.qctx, a, b),
+            lambda a=a, b=b, plain=plain: plain(ring.qctx, a, b),
+            f"{op} {label} {list(shape)}",
+            lambda c, e=a.numel(): bound(12 * e, 0, c.rate))
     results = {}
     for name, (kern, plain, shape, bound_of) in timed.items():
         (bms, bby), (cms, cby) = bound_of(PEAK), bound_of(calibrated)
@@ -3374,6 +3418,7 @@ def main() -> int:
         ("K10", "dense_apply (ntt_dense)", "ringzk_tpu_torch/csrc/ntt_dense.cu",
          "archive/ntt_dense_kernel.py:81"),
         ("K11", "mac_chain", "ringzk_tpu_torch/csrc/mac_probe.cu", "scripts/calibrate_vpu.py:98"),
+        ("modq", "modq_add / modq_sub", "ringzk_tpu_torch/csrc/modq.cu", "none (XLA fused)"),
     ]
     gc.collect()
     torch.cuda.empty_cache()
@@ -3429,7 +3474,9 @@ def main() -> int:
          **({"shapes_ms": {name: r[0] for name, r in results.items() if name.startswith("K4")}}
             if k == "K4" else {}),
          **({"shapes_ms": {r[4]: r[0] for name, r in results.items() if name.split()[0] == k}}
-            if k in ("K1", "K2", "K7", "K8") else {}),
+            if k in ("K1", "K2", "K7", "K8", "modq") else {}),
+         **({"shapes_plain_ms": {r[4]: r[1] for name, r in results.items()
+                                 if name.split()[0] == k}} if k == "modq" else {}),
          **({"inv_ms": results[f"{k} (inv)"][0], "inv_plain_ms": results[f"{k} (inv)"][1]}
             if k in ("K9", "K10") else {}),
          **({"tp_ms": k9_tp, "sp_ms": k9_sp} if k == "K9" else {}),

@@ -13,7 +13,8 @@ import torch
 
 LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "matvec_digits": 0, "challenge_select": 0,
             "scalar_mul_add": 0, "matvec_colblock": 0, "ntt_fwd_wide": 0, "ntt_inv_wide": 0,
-            "ntt_fwd_one": 0, "ntt_inv_one": 0, "ntt_dense": 0, "mac_chain": 0}
+            "ntt_fwd_one": 0, "ntt_inv_one": 0, "ntt_dense": 0, "mac_chain": 0,
+            "modq_add": 0, "modq_sub": 0}
 
 
 def reset_launches() -> None:

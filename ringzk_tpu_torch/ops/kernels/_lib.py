@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
 # C entry points: name -> argument types. Each returns cudaGetLastError().
 SIGNATURES = {
     "rz_ntt_fwd": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -40,7 +40,9 @@ SIGNATURES = {
     "rz_ntt_fwd_one": (_P, _P, _P, _P, _I, _I, _P),
     "rz_ntt_inv_one": (_P, _P, _P, _P, _I, _I, _P),
     "rz_ntt_dense": (_P, _P, _P, _P, _I, _I, _P),
-    "rz_mac_chain": (_P, _P, _P, ctypes.c_longlong, _P),
+    "rz_mac_chain": (_P, _P, _P, _L, _P),
+    "rz_modq_add": (_P, _P, _P, _U, _L, _P),
+    "rz_modq_sub": (_P, _P, _P, _U, _L, _P),
 }
 
 _loaded: ctypes.CDLL | None = None

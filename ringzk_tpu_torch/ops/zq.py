@@ -4,9 +4,10 @@ Ring elements are centered residues in [-(q-1)/2, (q-1)/2], stored as int32
 on narrow rings (q < 2^32) and as int64 on wide ones. Since a narrow q ~
 2^31.7, centered sums overflow int32, so add and sub round-trip through the
 unsigned [0, q) domain, as ``ringzk_tpu.ops.zq`` does, with the int64 twins
-of :mod:`.montgomery`. On wide rings the context is a
-:class:`.mont64.Mont64Ctx` (``is64``), and add and sub wrap centered int64
-sums directly.
+of :mod:`.montgomery`: on the CPU that chain itself, on a CUDA device one
+kernel pass (:mod:`.kernels.modq`, whose plain version is the chain). On
+wide rings the context is a :class:`.mont64.Mont64Ctx` (``is64``), and add
+and sub wrap centered int64 sums directly.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.profiling import annotate
+from .kernels import modq
 from .montgomery import MontCtx
 from .u64 import MASK32, narrow
 
@@ -37,14 +39,14 @@ def add_centered(ctx, a, b):
     MontCtx, int64 for a Mont64Ctx (dispatched on ``ctx.is64``)."""
     if getattr(ctx, "is64", False):
         return ctx.add_centered_i64(a, b)
-    return to_centered(ctx, ctx.add(to_unsigned(ctx, a), to_unsigned(ctx, b)))
+    return modq.modq_add(ctx, a, b)
 
 
 @annotate("modq")
 def sub_centered(ctx, a, b):
     if getattr(ctx, "is64", False):
         return ctx.sub_centered_i64(a, b)
-    return to_centered(ctx, ctx.sub(to_unsigned(ctx, a), to_unsigned(ctx, b)))
+    return modq.modq_sub(ctx, a, b)
 
 
 def neg_centered(ctx: MontCtx, a):

@@ -832,3 +832,93 @@ def test_ring_algebra_on_card(cuda, q):
         got, want = fn(x.to(cuda)), fn(x)
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         assert all(torch.equal(g_.cpu(), w_) for g_, w_ in zip(got, want)), fn.__name__
+
+
+def _modq_pairs(rng, shape, q):
+    """int32 a, b over the whole range, whose flat starts hold the edges 0,
+    +-1, +-(q-1)/2, -2^31 and 2^31-1 in every pairing (as many as fit)."""
+    full = np.iinfo(np.int32)
+    edge = np.array([0, 1, -1, q // 2, -(q // 2), full.min, full.max], np.int64)
+    a, b = (rng.integers(full.min, full.max, size=shape, endpoint=True) for _ in range(2))
+    k = min(edge.size ** 2, a.size)
+    a.reshape(-1)[:k], b.reshape(-1)[:k] = np.repeat(edge, edge.size)[:k], \
+        np.tile(edge, edge.size)[:k]
+    return (torch.from_numpy(v.astype(np.int32)) for v in (a, b))
+
+
+@pytest.mark.parametrize("q", [Q, 32749])
+@pytest.mark.parametrize("op", ["add", "sub"])
+def test_modq_kernel_matches_plain(cuda, op, q):
+    """The centred add and sub kernel equals its plain version bit for bit,
+    at the default modulus (MontCtx.add's carry branch) and at 32749 (its
+    wrapping branch below 2^31): int32 over the whole range with the edges
+    in every pairing; the three benchmark cells' shapes at a reduced batch
+    (open [B, 2, 512] and [B, 2, 1024], sum's [B, 4, 2, 1024]); lengths that
+    are no multiple of 4; a broadcast operand, a non-contiguous one and
+    one off a 16-byte boundary. Every call is one launch."""
+    from ringzk_tpu_torch.ops.kernels import modq as k_modq
+    from ringzk_tpu_torch.ops.montgomery import MontCtx
+
+    ctx = MontCtx.make(q)
+    fn, plain = ((k_modq.modq_add, k_modq.modq_add_plain) if op == "add"
+                 else (k_modq.modq_sub, k_modq.modq_sub_plain))
+    rng = np.random.default_rng(q % 1000 + (op == "sub"))
+
+    def held(a, b, label):
+        before = kernels.LAUNCHES[f"modq_{op}"]
+        got = fn(ctx, a.to(cuda), b.to(cuda))
+        assert kernels.LAUNCHES[f"modq_{op}"] == before + 1, label
+        want = plain(ctx, a, b)
+        assert got.dtype == torch.int32 and got.shape == want.shape, label
+        assert torch.equal(got.cpu(), want), label
+
+    for shape in [(300, 2, 512), (300, 2, 1024), (77, 4, 2, 1024), (1001,), (5, 3, 7), (3,),
+                  (1,), (4,), (49,)]:
+        held(*_modq_pairs(rng, shape, q), shape)
+    a, b = _modq_pairs(rng, (300, 3, 512), q)
+    held(a, b[:, :1], "broadcast rows")
+    held(b[0, 0], a, "broadcast polynomial")
+    held(a.transpose(0, 1), b.transpose(0, 1), "non-contiguous")
+    held(a.reshape(-1)[1:4001], b.reshape(-1)[5:4005], "off a 16-byte boundary")
+
+
+@pytest.mark.parametrize("proto", ["open", "sum"])
+def test_modq_kernel_carries_every_narrow_centred_add(cuda, monkeypatch, proto):
+    """Open at N=512 and sum at N=1024, small batches, on the card: every
+    narrow centred add and sub of the round trip is one kernel launch and
+    none takes the plain chain; open makes two adds (the commit's c = A r
+    + [0; x] and the opening check's) and no sub; both verdicts all true."""
+    from ringzk_tpu_torch.ops.kernels import modq as k_modq
+
+    calls = {"modq_add": 0, "modq_sub": 0}
+    for name in calls:
+        def counted(ctx, a, b, real=getattr(k_modq, name), name=name):
+            calls[name] += 1
+            return real(ctx, a, b)
+        monkeypatch.setattr(k_modq, name, counted)
+
+    def refuse(*args):
+        raise AssertionError("the plain chain ran on the card")
+    monkeypatch.setattr(k_modq, "modq_add_plain", refuse)
+    monkeypatch.setattr(k_modq, "modq_sub_plain", refuse)
+    params = Params()
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    n = 512 if proto == "open" else 1024
+    ck = commit_mod.keygen(gen, params, n)
+    if proto == "open":
+        x = sampling.uniform_centered(gen, (200, params.l), n, params.q, cuda)
+        run = lambda: open_mod.roundtrip(gen, ck, x, params)  # noqa: E731
+    else:
+        xs = sampling.uniform_centered(gen, (40, 4, params.l), n, params.q, cuda)
+        gs = sampling.uniform_centered(gen, (40, 4), n, params.q, cuda)
+        run = lambda: sum_mod.roundtrip(gen, ck, gs, xs, params)  # noqa: E731
+    kernels.reset_launches()
+    ok, opening_ok = run()
+    torch.cuda.synchronize()
+    assert ok.all() and opening_ok.all()
+    assert {k: kernels.LAUNCHES[k] for k in calls} == calls
+    assert calls["modq_add"] > 0
+    if proto == "open":
+        assert calls == {"modq_add": 2, "modq_sub": 0}
+    else:
+        assert calls["modq_sub"] > 0
