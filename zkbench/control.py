@@ -11,8 +11,9 @@ does, and has ``reference/<protocol>.py``'s ``produce`` prove and verify
 those rows from its own draws with every ring product's exact integer sum
 kept to 32 bits (``Arith(wrap32=True)``), as a 32-bit accumulator would
 hold it, before the reduction mod q: the step below the 64-bit
-accumulation that exact products mod a 32-bit q need. Only the sampled
-rows are computed, since the comparison reads no other. ``judge`` then
+accumulation that exact products mod a 32-bit q need (on a wide ring,
+whose products need more than 64 bits, a step further below). Only the
+sampled rows are computed, since the comparison reads no other. ``judge`` then
 compares them with the exact reference, and the script prints each seed's
 numbers beside their limits and the verdict. It does not run the program.
 """
@@ -60,7 +61,8 @@ def control_rows(cell, seed: int, batches: int, device, wrap32: bool = True):
     resp = collections.namedtuple("Response", names)(*(rows[k] for k in names))
     from zkbench.tamper import tampered as copies
 
-    for name, bad in copies(drv.PROTOCOL, resp, scheme.verify_bound + 1, False).items():
+    for name, bad in copies(drv.PROTOCOL, resp, scheme.verify_bound + 1,
+                            core.is_wide(params)).items():
         fields = bad._asdict()
         tampered[name] = (ref.reverify(scheme, {**rows, **fields}, a1, a2, ar), fields)
     return rows, tampered, batches * per, (a1p, a2p), drv

@@ -33,6 +33,7 @@ from types import ModuleType, SimpleNamespace
 import numpy as np
 import torch
 
+from .roofline.wide import is_wide
 from .trace import traced_window
 
 HERE = Path(__file__).resolve().parent
@@ -373,15 +374,36 @@ def params_of(cfg: dict):
                   modulus=p["modulus"])
 
 
+def draw_dtype(bound: int) -> torch.dtype:
+    """The dtype of uniform draws in [-bound, bound]: int32 where the range
+    fits it (every narrow ring's sampling bound), int64 from 2^31 on (the
+    wide rings', q >= 2^32)."""
+    return torch.int32 if bound < 2**31 else torch.int64
+
+
+def uniform(gen: torch.Generator, bound: int, shape: tuple, dev) -> torch.Tensor:
+    """Uniform integers in [-bound, bound] of ``shape`` from ``gen``, in
+    ``draw_dtype(bound)``: the one draw of the key's parts and of every
+    driver's messages."""
+    return torch.randint(-bound, bound + 1, shape, generator=gen, device=dev,
+                         dtype=draw_dtype(bound))
+
+
 def key_parts(params, n_deg: int, seed: int, dev) -> tuple:
     """The key's uniform parts a1p [n, k-n, N], a2p [l, k-n-l, N] in
     [-q, q], from the seed: the benchmark's, handed to the program's
     ``keygen`` and to the reference alike."""
     gen = generator(dev, seed, "key")
-    return tuple(torch.randint(-params.q, params.q + 1, (rows, cols, n_deg), generator=gen,
-                               device=dev, dtype=torch.int32)
+    return tuple(uniform(gen, params.q, (rows, cols, n_deg), dev)
                  for rows, cols in ((params.n, params.k - params.n),
                                     (params.l, params.k - params.n - params.l)))
+
+
+def response_rows(params, t: torch.Tensor) -> torch.Tensor:
+    """Sampled response rows as the tampered copies start from them:
+    contiguous, and int64 on a wide ring, so that a copy can hold -2^63
+    whatever dtype the program handed."""
+    return t.to(torch.int64).contiguous() if is_wide(params) else t.contiguous()
 
 
 def make_pool(drv, params, n_deg: int, traffic: dict, batch: int, seed: int, dev) -> list:
@@ -461,13 +483,15 @@ def run_rank(ctx, drv, dist_ctx=None) -> dict:
     del st, ck, pool, tap, table_dev
     if on_cuda(dev):
         torch.cuda.empty_cache()
+    t_ref = time.perf_counter()
     judged = reference_check(cell, drv, rows, a1p, a2p, tampered, expected, dev)
+    reference_s = time.perf_counter() - t_ref
     judged["checks"].update(extra)
     return {"verified": win.verified, "attempted": win.attempted, "elapsed_s": win.elapsed_s,
             "batches": win.batches, "batch_ms": win.batch_ms, "dispatch_ms": win.dispatch_ms,
             "setup_peak": setup_peak, "window_peak": win_peak, "t_window": t_window,
             "trace": trace, "forbidden": found, "checks": judged["checks"],
-            "per_check": judged["per_check"], "batch": batch,
+            "per_check": judged["per_check"], "batch": batch, "reference_s": reference_s,
             "setup": [[name, t - prev] for (_, prev), (name, t) in zip(marks, marks[1:])]}
 
 
@@ -527,6 +551,8 @@ def final(ctx, drv, parts: list) -> tuple:
         for k, v in p["per_check"].items():
             per[k] = per.get(k, 0) + v
     err = ["set-up s on rank 0: " + ", ".join(f"{name} {s:.3f}" for name, s in p0["setup"]),
+           f"reference s on rank 0: {p0['reference_s']:.3f} over "
+           f"{p0['checks']['rows_compared'][0]} rows",
            f"rows wrong by check: {json.dumps(per, sort_keys=True)}",
            f"window: {p0['batches']} batches on rank 0, "
            f"{obs.verified} of {obs.attempted} proofs verified in {obs.elapsed_s:.3f} s; "

@@ -4,9 +4,11 @@
 verify), at the mix's chain count.
 
 The benchmark makes the messages [B, l, N], uniform in [-q, q] on the
-card, from the seed. Its taps keep the sampled rows of what the round
-trip hands its opening check (c, x, r), the challenge sampler's draws
-that K4 selects from (keys, signs) and its verifier (z, c1, t, d).
+card, from the seed (``core.uniform``: int32, int64 on wide rings). Its
+taps keep the sampled rows of what the round trip hands its opening check
+(c, x, r), the challenge sampler's draws that K4 selects from (keys,
+signs) and its verifier (z, c1, t, d); on wide rings the forged copies
+include one whose first z coefficient is -2^63.
 """
 
 from __future__ import annotations
@@ -25,8 +27,7 @@ VERDICTS = ("ok", "op")
 
 
 def make_inputs(params, n_deg: int, traffic: dict, batch: int, gen, device) -> tuple:
-    return (torch.randint(-params.q, params.q + 1, (batch, params.l, n_deg), generator=gen,
-                          device=device, dtype=torch.int32),)
+    return (core.uniform(gen, params.q, (batch, params.l, n_deg), device),)
 
 
 def input_fields(rows: tuple) -> dict:
@@ -118,11 +119,12 @@ def tampered(st, rows: dict) -> dict:
     from zkbench.tamper import tampered as copies
 
     n_deg = rows["z"].shape[-1]
-    resp = OpenProofResponse(z=rows["z"].contiguous())
+    resp = OpenProofResponse(z=core.response_rows(st.params, rows["z"]))
     vctx = OpenProofVerificationContext(c1=rows["c1"].contiguous(), t=rows["t"].contiguous(),
                                         d=rows["d"].contiguous())
     out = {}
-    for name, bad in copies("open", resp, st.params.verify_bound(n_deg) + 1, False).items():
+    for name, bad in copies("open", resp, st.params.verify_bound(n_deg) + 1,
+                            core.is_wide(st.params)).items():
         out[name] = (st.verify(st.ck, bad, vctx, st.params), {"z": bad.z})
     return out
 

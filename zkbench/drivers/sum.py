@@ -5,18 +5,16 @@ x_i, their opening checks, the challenge, the responses, the verify), at
 the mix's chain count.
 
 The benchmark makes gs [B, V, N] and xs [B, V, l, N], uniform in [-q, q]
-on the card, from the seed. Its taps keep the sampled rows of what the
-round trip hands its opening checks (cp, xp, rp; cs, xs, rs), the
-challenge sampler's draws (keys, signs) and its verifier (zs, zp and the
-verifier's context).
+on the card, from the seed (``core.uniform``). Its taps keep the sampled
+rows of what the round trip hands its opening checks (cp, xp, rp; cs, xs,
+rs), the challenge sampler's draws (keys, signs) and its verifier (zs, zp
+and the verifier's context).
 """
 
 from __future__ import annotations
 
 import sys
 from types import SimpleNamespace
-
-import torch
 
 from zkbench import core
 
@@ -35,12 +33,8 @@ local, verified, verdict_fields, sync, extra_checks = (
 
 def make_inputs(params, n_deg: int, traffic: dict, batch: int, gen, device) -> tuple:
     vl = traffic["vl"]
-
-    def centered(*shape):
-        return torch.randint(-params.q, params.q + 1, shape, generator=gen, device=device,
-                             dtype=torch.int32)
-
-    return centered(batch, vl, n_deg), centered(batch, vl, params.l, n_deg)
+    return (core.uniform(gen, params.q, (batch, vl, n_deg), device),
+            core.uniform(gen, params.q, (batch, vl, params.l, n_deg), device))
 
 
 def input_fields(rows: tuple) -> dict:
@@ -95,10 +89,12 @@ def tampered(st, rows: dict) -> dict:
     from zkbench.tamper import tampered as copies
 
     n_deg = rows["zs"].shape[-1]
-    resp = SumProofResponse(zp=rows["zp"].contiguous(), zs=rows["zs"].contiguous())
+    resp = SumProofResponse(zp=core.response_rows(st.params, rows["zp"]),
+                            zs=core.response_rows(st.params, rows["zs"]))
     vctx = SumProofVerificationContext(**{f: rows[f].contiguous() for f in CONTEXT})
     out = {}
-    for name, bad in copies("sum", resp, st.params.verify_bound(n_deg) + 1, False).items():
+    for name, bad in copies("sum", resp, st.params.verify_bound(n_deg) + 1,
+                            core.is_wide(st.params)).items():
         out[name] = (st.verify(st.ck, bad, vctx, st.params), {"zs": bad.zs, "zp": bad.zp})
     return out
 

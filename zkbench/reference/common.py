@@ -69,7 +69,8 @@ def key_matrices(s: Scheme, a1p: torch.Tensor, a2p: torch.Tensor):
 
 
 class Arith:
-    """Centered products mod q. ``wrap32`` keeps each product's exact
+    """Centered products, sums and differences mod q, exact for every odd
+    q < 2^63 and any int64 operands. ``wrap32`` keeps each product's exact
     integer sum to 32 bits first, as a 32-bit accumulator would: the
     control's lower precision."""
 
@@ -92,10 +93,15 @@ class Arith:
         return out.reshape(lead + tuple(out.shape[-2:]))
 
     def add(self, a, b):
-        return ring.centered(a.to(torch.int64) + b.to(torch.int64), self.q)
+        """Each operand centered first: the sum of two centered residues
+        is below q < 2^63."""
+        return ring.centered(self._cen(a) + self._cen(b), self.q)
 
     def sub(self, a, b):
-        return ring.centered(a.to(torch.int64) - b.to(torch.int64), self.q)
+        return ring.centered(self._cen(a) - self._cen(b), self.q)
+
+    def _cen(self, a):
+        return ring.centered(a.to(torch.int64), self.q)
 
 
 def same(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -121,7 +127,7 @@ def is_challenge(s: Scheme, d: torch.Tensor) -> torch.Tensor:
     """Per row of d [R, N]: exactly min(kappa, N) coefficients, each +-1."""
     d = d.to(torch.int64)
     nz = d != 0
-    return (nz.sum(-1) == min(s.kappa, s.n_deg)) & ((d.abs() <= 1).all(-1))
+    return (nz.sum(-1) == min(s.kappa, s.n_deg)) & ((d >= -1) & (d <= 1)).all(-1)
 
 
 def norms_ok(x: torch.Tensor, bound: int) -> torch.Tensor:
@@ -130,5 +136,7 @@ def norms_ok(x: torch.Tensor, bound: int) -> torch.Tensor:
 
 
 def within(x: torch.Tensor, bound: int) -> torch.Tensor:
-    """Per row: every |coefficient| <= bound."""
-    return (x.to(torch.int64).abs() <= bound).reshape(x.shape[0], -1).all(-1)
+    """Per row: every coefficient in [-bound, bound] (compared, not by its
+    absolute value: |-2^63| is not an int64)."""
+    x = x.to(torch.int64)
+    return ((x >= -bound) & (x <= bound)).reshape(x.shape[0], -1).all(-1)

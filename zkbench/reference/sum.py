@@ -25,9 +25,14 @@ FIELDS = ("x_in", "g_in", "xs", "rs", "cs", "xp", "rp", "cp", "gs", "c1s", "c2s"
 
 
 def g_sum(ar: Arith, gs, vs):
-    """sum_i g_i v_i: gs [R, V, N], vs [R, V, rows, N] -> [R, rows, N]."""
+    """sum_i g_i v_i: gs [R, V, N], vs [R, V, rows, N] -> [R, rows, N],
+    added mod q one summand at a time (V centered residues of a modulus
+    near 2^63 would overflow int64 if summed first)."""
     prod = ar.mul(gs[:, :, None, :], vs)
-    return ar.add(prod.sum(1), torch.zeros_like(prod[:, 0]))
+    out = prod[:, 0]
+    for i in range(1, prod.shape[1]):
+        out = ar.add(out, prod[:, i])
+    return out
 
 
 def verdict(s: Scheme, ar: Arith, a1, a2, rows: dict) -> torch.Tensor:

@@ -17,18 +17,33 @@ SMALL_N, SMALL_B = 64, 8
 # the four-card cell, as a later entry in BENCHMARK.json would add it
 DP = {"name": "open-n512-dp4-b131072", "config": "rzk-default-n512",
       "traffic": "dp-open-b131072", "chips": 4, "why": "the dp path over four ranks"}
+# a wide ring (q = 2^33+9, ring-zk's other default parameters), as a later
+# configuration would add it, under the open and the sum mixes
+Q33 = 2**33 + 9
+WIDE = {"name": "rzk-wide-q2e33", "source": "a wide ring of the port",
+        "file": "zkbench/configs/rzk-wide-q2e33.json", "reduced": [],
+        "why": "q = 2^33+9: K7, K8, int64 residues"}
+WIDE_CELLS = [{"name": f"{traffic.split('-')[0]}-q2e33", "config": WIDE["name"],
+               "traffic": traffic, "chips": 1, "why": "the wide ring"}
+              for traffic in ("open-b131072", "sum-vl4-b24576")]
 
 
 def small_checkout(root: Path) -> Path:
     """A checkout of the benchmark at a small size under ``root``: the
     benchmark copied, every configuration at degree SMALL_N and every
-    traffic mix at SMALL_B proofs a card, the dp cell added to
-    BENCHMARK.json, and the port linked."""
+    traffic mix at SMALL_B proofs a card, the dp cell and the wide ring's
+    configuration and cells added to BENCHMARK.json, and the port linked."""
     shutil.copytree(core.HERE, root / "zkbench", ignore=shutil.ignore_patterns("__pycache__"))
     (root / "ringzk_tpu_torch").symlink_to(core.ROOT / "ringzk_tpu_torch")
     spec = core.load_spec()
-    if DP["name"] not in [w["name"] for w in spec["workloads"]]:
-        spec["workloads"].append(DP)
+    names = [w["name"] for w in spec["workloads"]]
+    spec["workloads"] += [w for w in [DP] + WIDE_CELLS if w["name"] not in names]
+    if WIDE["name"] not in [c["name"] for c in spec["configs"]]:
+        spec["configs"].append(WIDE)
+        base = json.loads((root / spec["configs"][0]["file"]).read_text())
+        (root / WIDE["file"]).write_text(json.dumps(dict(
+            base, name=WIDE["name"], source=WIDE["source"],
+            params=dict(base["params"], q=Q33 // 2, modulus=Q33))))
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
     for conf in spec["configs"]:
         path = root / conf["file"]

@@ -9,9 +9,10 @@ import torch
 
 from zkbench import control, core
 
-from .helpers import DP, cpu_cell, run_cpu
+from .helpers import DP, WIDE_CELLS, cpu_cell, run_cpu
 
-CELLS = ["open-n512-b131072", "sum-n1024-vl4-b24576"]
+# the narrow ring's open and sum cells, and the same mixes on the wide ring
+CELLS = ["open-n512-b131072", "sum-n1024-vl4-b24576"] + [w["name"] for w in WIDE_CELLS]
 
 
 @pytest.mark.parametrize("wrap32", [True, False], ids=["control", "exact"])
